@@ -1,0 +1,352 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (``easydl_tpu_torch``) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases, each of which fails the run (non-zero exit) on any error:
+
+1. device: a CUDA GPU must be present; prints its ``nvidia-smi`` name and
+   power limit;
+2. build: compiles the flash-attention kernels from
+   ``easydl_tpu_torch/ops/csrc/`` with ``nvcc`` and prints the build time;
+3. kernels: holds ``flash_fwd`` (O and lse), ``flash_bwd_dq`` and
+   ``flash_bwd_dkv`` (dk and dv) against their plain PyTorch versions on the
+   card, at the GPT-2 345M shape ([128, 1024, 64] bf16, causal; O and
+   gradients within 4e-3 + 1e-2·|x|, a few bf16 ulps; lse, f32 on both
+   sides, within 2e-5 + 2e-5·|x|) and at small f32 cases, one rectangular
+   causal with dead rows and ragged tails (2e-5 forward, 5e-4 gradients,
+   absolute and relative); times each kernel, its plain
+   version and ``F.scaled_dot_product_attention`` (the yardstick only) with
+   CUDA events, and reckons each kernel's bound from its shapes;
+4. main path: GPT-2 345M at full width (24 layers, d_model 1024, 16 heads,
+   vocab 50304, seq 1024), bf16 model dtype, f32 masters, AdamW(2e-4,
+   weight decay 0.01), global batch 16 with grad_accum 2, through the
+   registry's bundle and ``Trainer.train_step``: 1 warm-up step and 3 timed
+   steps; asserts finite losses near ln(vocab) and that every attention call
+   launched the kernels (24 layers x 2 microbatches x 4 steps each); step
+   time is the timed window's total over its 3 steps; then one more step
+   under ``torch.profiler`` for device time by kernel;
+5. model check: the trained model's bf16 logits with flash attention
+   against the reference attention, elementwise and in relative L2, and
+   their losses (bounds in ``MODEL_CHECK``);
+6. summary: a ``kernels`` JSON line, the card line, then the result line.
+
+Imports only the port and torch.
+"""
+
+from __future__ import annotations
+
+import functools
+import json
+import math
+import statistics
+import subprocess
+import sys
+import time
+
+import torch
+
+from easydl_tpu_torch.core.mfu import mfu, peak_flops_per_chip
+from easydl_tpu_torch.core.train_loop import TrainConfig, Trainer
+from easydl_tpu_torch.models.gpt import lm_loss
+from easydl_tpu_torch.models.registry import get_model
+from easydl_tpu_torch.ops import build
+from easydl_tpu_torch.ops import flash_attention as fa
+from easydl_tpu_torch.ops.attention import reference_attention
+
+# H100 SXM memory rate (NVIDIA data sheet); the FLOP peak is core/mfu's
+PEAK_BYTES_PER_S = 3.35e12
+
+MAIN_BH, MAIN_S, MAIN_D = 128, 1024, 64  # 345M: microbatch 8 x 16 heads
+N_LAYERS, MICROBATCHES, STEPS = 24, 2, 4  # 1 warm-up + 3 timed
+# (atol, rtol) of O and of the gradients, by dtype. bf16: both sides compute
+# in f32 from the same inputs and differ by output rounding only (measured
+# max |err| 0.00195 for O, 0 for the gradients at the main-path shape), so a
+# few bf16 ulps. f32: the JAX flash tests' own (2e-5 forward, 5e-4 grads).
+# lse is f32 on both sides and always takes the f32 forward bound.
+TOL = {torch.bfloat16: {"fwd": (4e-3, 1e-2), "grad": (4e-3, 1e-2)},
+       torch.float32: {"fwd": (2e-5, 2e-5), "grad": (5e-4, 5e-4)}}
+# flash vs reference attention in the trained 345M model, bf16: logits within
+# LOGIT_ULPS bf16 ulps of the largest |logit| elementwise and LOGIT_REL in
+# relative L2; losses within LOSS_ABS. Measured on an H100 SXM (700 W): 1.0
+# ulp of the largest |logit| 2.64, relative L2 0.0035 (logit std 0.61),
+# loss |diff| 2.1e-5; the bounds leave about 2x (5x for the loss).
+MODEL_CHECK = {"LOGIT_ULPS": 2, "LOGIT_REL": 7e-3, "LOSS_ABS": 1e-4}
+SOURCE = "easydl_tpu_torch/ops/csrc/flash_attention.cu"
+REPLACES = {
+    "flash_fwd": "easydl_tpu/ops/flash_attention.py:59",
+    "flash_bwd_dq": "easydl_tpu/ops/flash_attention.py:157",
+    "flash_bwd_dkv": "easydl_tpu/ops/flash_attention.py:200",
+}
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def cuda_ms(fn, reps: int = 15) -> float:
+    """Median over ``reps`` of one call, timed with CUDA events after 2 warm-ups."""
+    for _ in range(2):
+        fn()
+    events = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        events.append((start, end))
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in events)
+
+
+def visible_pairs(s_q: int, s_k: int, causal: bool) -> int:
+    """(row, col) pairs the bottom-right causal mask leaves visible."""
+    if not causal:
+        return s_q * s_k
+    offset = s_k - s_q
+    return sum(min(max(r + offset + 1, 0), s_k) for r in range(s_q))
+
+
+def bound(name: str, bh: int, s_q: int, s_k: int, d: int, causal: bool, itemsize: int,
+          peak_flops: float):
+    """(bound_ms, bound_by): the larger of bytes moved (each input read once,
+    each output written once) over the memory rate and the visible-pair
+    FLOPs over the peak rate."""
+    pairs = visible_pairs(s_q, s_k, causal) * bh
+    q_bytes, kv_bytes, row_bytes = bh * s_q * d * itemsize, bh * s_k * d * itemsize, bh * s_q * 4
+    flops, nbytes = {
+        # S = QKᵀ, O = PV; reads q k v, writes O and lse
+        "flash_fwd": (4 * d * pairs, 2 * q_bytes + 2 * kv_bytes + row_bytes),
+        # S, dP = dO Vᵀ, dq = dS K; reads q k v dO lse Δ, writes dq
+        "flash_bwd_dq": (6 * d * pairs, 3 * q_bytes + 2 * kv_bytes + 2 * row_bytes),
+        # S, dP, dv = Pᵀ dO, dk = dSᵀ Q; reads q k v dO lse Δ, writes dk dv
+        "flash_bwd_dkv": (8 * d * pairs, 2 * q_bytes + 4 * kv_bytes + 2 * row_bytes),
+    }[name]
+    t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def check_kernels(bh, s_q, s_k, d, dtype, causal, seed, timed, peak_flops=None):
+    """Each kernel against its plain version on the same card inputs."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn(bh, s_q, d, generator=g, device="cuda").to(dtype)
+    k = torch.randn(bh, s_k, d, generator=g, device="cuda").to(dtype)
+    v = torch.randn(bh, s_k, d, generator=g, device="cuda").to(dtype)
+    do = torch.randn(bh, s_q, d, generator=g, device="cuda").to(dtype)
+    scale = d ** -0.5
+    tol_fwd, tol_grad, tol_lse = TOL[dtype]["fwd"], TOL[dtype]["grad"], TOL[torch.float32]["fwd"]
+    o_ref, lse_ref = fa.flash_fwd_plain(q, k, v, causal, scale)
+    delta = fa.attention_delta(do, o_ref)
+    args = (q, k, v, do, lse_ref, delta, causal, scale)
+    dq_ref = fa.flash_bwd_dq_plain(*args)
+    dk_ref, dv_ref = fa.flash_bwd_dkv_plain(*args)
+    o, lse = fa.flash_fwd(q, k, v, causal, scale)
+    dq = fa.flash_bwd_dq(*args)
+    dk, dv = fa.flash_bwd_dkv(*args)
+    torch.cuda.synchronize()
+
+    def err(a, b, tol, what):
+        a, b = a.float(), b.float()
+        if not torch.isfinite(a).all():
+            raise AssertionError(f"{what}: non-finite kernel output")
+        atol, rtol = tol
+        e = (a - b).abs()
+        if not bool((e <= atol + rtol * b.abs()).all()):
+            raise AssertionError(f"{what}: max |err| {e.max().item():.3g} over "
+                                 f"{atol} + {rtol}*|x|")
+        return e.max().item()
+
+    live = lse_ref < 1e38  # dead rows: both give +FLT_MAX exactly
+    if not torch.equal(lse[~live], lse_ref[~live]):
+        raise AssertionError("flash_fwd: dead rows' lse differs")
+    e_o, e_lse = err(o, o_ref, tol_fwd, "flash_fwd O"), err(lse[live], lse_ref[live], tol_lse,
+                                                          "flash_fwd lse")
+    errs = {
+        "flash_fwd": max(e_o, e_lse),
+        "flash_bwd_dq": err(dq, dq_ref, tol_grad, "flash_bwd_dq"),
+        "flash_bwd_dkv": max(err(dk, dk_ref, tol_grad, "flash_bwd_dkv dk"),
+                             err(dv, dv_ref, tol_grad, "flash_bwd_dkv dv")),
+    }
+    log(f"kernels vs plain [{bh},{s_q}/{s_k},{d}] {str(dtype)[6:]} causal={causal}: "
+        + f"flash_fwd max|err| O {e_o:.3g} lse {e_lse:.3g}, "
+        + ", ".join(f"{n} max|err| {errs[n]:.3g}" for n in ("flash_bwd_dq", "flash_bwd_dkv"))
+        + " -- ok")
+    if dtype == torch.float32:
+        # and against autograd through the einsum reference attention, which
+        # shares no code with the kernels or their plain versions
+        qkv = [x.view(bh, -1, 1, d).detach().requires_grad_() for x in (q, k, v)]
+        out = reference_attention(*qkv, causal=causal, scale=scale)
+        grads = torch.autograd.grad(out, qkv, do.view_as(out))
+        for what, a, b in (("O", o, out), ("dq", dq, grads[0]), ("dk", dk, grads[1]),
+                           ("dv", dv, grads[2])):
+            err(a, b.view_as(a), tol_grad, f"{what} vs autograd of the reference")
+        log("  ... and O, dq, dk, dv against autograd of the reference attention -- ok")
+    if not timed:
+        return None
+    calls = {
+        "flash_fwd": (lambda: fa.flash_fwd(q, k, v, causal, scale),
+                      lambda: fa.flash_fwd_plain(q, k, v, causal, scale)),
+        "flash_bwd_dq": (lambda: fa.flash_bwd_dq(*args), lambda: fa.flash_bwd_dq_plain(*args)),
+        "flash_bwd_dkv": (lambda: fa.flash_bwd_dkv(*args), lambda: fa.flash_bwd_dkv_plain(*args)),
+    }
+    # the yardstick: one PyTorch call for the same attention, [B, H, S, d]
+    heads = (bh // 16, 16)
+    qs, ks, vs = (x.view(*heads, -1, d).detach().requires_grad_() for x in (q, k, v))
+    out = torch.nn.functional.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+    lib_fwd = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qs, ks, vs, is_causal=True))
+    lib_bwd = cuda_ms(lambda: torch.autograd.grad(out, (qs, ks, vs), do.view_as(out),
+                                                  retain_graph=True))
+    rows = []
+    for name, (kern, plain) in calls.items():
+        b_ms, b_by = bound(name, bh, s_q, s_k, d, causal, q.element_size(), peak_flops)
+        rows.append({
+            "name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
+            "max_abs_err": errs[name], "ms": cuda_ms(kern), "plain_ms": cuda_ms(plain, reps=5),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": lib_fwd if name == "flash_fwd" else lib_bwd,
+        })
+    return rows
+
+
+def profile_step(trainer, state, host_batch, step_time: float) -> None:
+    """Device time by kernel over one traced step, grouped into attention
+    kernels, matrix products and the rest; busy share = summed kernel time
+    over the untraced step time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, metrics = trainer.train_step(state, host_batch)
+        float(metrics["loss"])
+    kernels = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
+               and not getattr(e, "is_user_annotation", False)]  # annotations span kernels
+    if not kernels:
+        log("profile: the profiler saw no device time; breakdown not measured")
+        return
+    groups = {"flash attention kernels": 0.0, "matrix products": 0.0, "other": 0.0}
+    for name, ms, _ in kernels:
+        low = name.lower()
+        if "flash_" in low:
+            groups["flash attention kernels"] += ms
+        elif any(t in low for t in ("gemm", "xmma", "cutlass", "nvjet")):  # cuBLAS kernels
+            groups["matrix products"] += ms
+        else:
+            groups["other"] += ms
+    total = sum(groups.values())
+    log(f"profile: {total:.1f} ms of kernels in one step ({total / 1e3 / step_time:.3f} of the "
+        f"untraced step time): " + ", ".join(f"{g} {ms:.1f} ms" for g, ms in groups.items()))
+    for name, ms, count in sorted(kernels, key=lambda k: -k[1])[:12]:
+        log(f"  {ms:9.3f} ms  x{count:<5d} {name[:110]}")
+
+
+def main() -> int:
+    # -- 1. device
+    if not torch.cuda.is_available():
+        print("chip_smoke: FAIL: no CUDA GPU (torch.cuda.is_available() is False); "
+              "this script needs one NVIDIA GPU", file=sys.stderr)
+        return 1
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
+    kind = torch.cuda.get_device_name(0)
+    peak = peak_flops_per_chip(kind)
+    log(f"device: {card} | torch {torch.__version__} cuda {torch.version.cuda} | "
+        f"peak {peak / 1e12:.0f} TFLOP/s bf16")
+    torch.backends.cuda.matmul.allow_tf32 = False  # plain versions in full f32
+    torch.backends.cudnn.allow_tf32 = False
+
+    # -- 2. build
+    t0 = time.perf_counter()
+    path, nvcc_log = build.build(fa.KERNEL_SOURCE)
+    log(f"build: {path.name} in {time.perf_counter() - t0:.1f}s")
+    for line in nvcc_log.splitlines():  # -Xptxas -v: per kernel registers and spills
+        if "entry function" in line or "Used" in line or "spill" in line:
+            log("  ptxas " + line.split("ptxas info    :")[-1].strip())
+
+    # -- 3. kernels against their plain versions
+    check_kernels(6, 200, 72, 32, torch.float32, True, seed=1, timed=False)
+    check_kernels(4, 136, 136, 64, torch.float32, False, seed=2, timed=False)
+    check_kernels(8, 128, 128, 32, torch.bfloat16, True, seed=3, timed=False)
+    rows = check_kernels(MAIN_BH, MAIN_S, MAIN_S, MAIN_D, torch.bfloat16, True,
+                         seed=0, timed=True, peak_flops=peak)
+    for r in rows:
+        log(f"  {r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, bound "
+            f"{r['bound_ms']:.4f} by {r['bound_by']}, sdpa {r['library_ms']:.4f}) on {card}")
+
+    # -- 4. main path: GPT-2 345M training steps
+    global_batch, seq, vocab = 16, 1024, 50304
+    bundle = get_model("gpt", size="345m", seq_len=seq, vocab=vocab, dtype="bfloat16")
+    trainer = Trainer(
+        init_fn=bundle.init_fn, loss_fn=bundle.loss_fn,
+        optimizer=functools.partial(torch.optim.AdamW, lr=2e-4, weight_decay=0.01),
+        config=TrainConfig(global_batch=global_batch, grad_accum=MICROBATCHES),
+        device="cuda",
+    )
+    state = trainer.init_state()
+    data = iter(bundle.make_data(global_batch, seed=0))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    losses, norms, step_s = [], [], []
+    for step in range(STEPS):
+        t0 = time.perf_counter()
+        state, metrics = trainer.train_step(state, next(data))
+        losses.append(float(metrics["loss"]))  # syncs
+        norms.append(float(metrics["grad_norm"]))
+        step_s.append(time.perf_counter() - t0)
+    counts = dict(fa.launches)
+    want = N_LAYERS * MICROBATCHES * STEPS
+    log(f"main path: gpt-345m b{global_batch}/a{MICROBATCHES} seq {seq} bf16: "
+        f"losses {losses}, grad norms {norms}, launches {counts}")
+    if not all(math.isfinite(x) for x in losses + norms):
+        raise AssertionError(f"non-finite loss or grad norm: {losses} {norms}")
+    if abs(losses[0] - math.log(vocab)) > 1.0:
+        raise AssertionError(f"first loss {losses[0]} far from ln(vocab) {math.log(vocab):.3f}")
+    if counts != {name: want for name in counts}:
+        raise AssertionError(f"launch counts {counts}, want {want} of each")
+    step_time = sum(step_s[1:]) / len(step_s[1:])  # the timed window over its steps
+    tokens_per_s = global_batch * seq / step_time
+    util = mfu(bundle.flops_per_sample_hint * global_batch / step_time, 1, kind)
+    log(f"main path: step {step_time:.4f}s (timed window {sum(step_s[1:]):.4f}s over "
+        f"{len(step_s) - 1} steps {step_s[1:]}), {tokens_per_s:.0f} "
+        f"tokens/s, MFU {util:.4f} vs {peak / 1e12:.0f} TFLOP/s bf16, peak mem "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, on {card}")
+
+    # -- 4b. where the time goes: one more step under the profiler
+    profile_step(trainer, state, next(data), step_time)
+
+    # -- 5. model check: flash against reference attention, same weights
+    batch = trainer.to_device(next(data))
+    ref = get_model("gpt", size="345m", seq_len=seq, vocab=vocab, dtype="bfloat16",
+                    attention_impl="reference").init_fn(1, "cuda")
+    ref.load_state_dict(state.model.state_dict())
+    with torch.no_grad():
+        logits_flash = state.model(batch["inputs"]).float()
+        logits_ref = ref(batch["inputs"]).float()
+        loss_flash = lm_loss(logits_flash, batch["targets"])[0].item()
+        loss_ref = lm_loss(logits_ref, batch["targets"])[0].item()
+        diff = (logits_flash - logits_ref).abs()
+        max_err, rel = diff.max().item(), (diff.norm() / logits_ref.norm()).item()
+        largest = logits_ref.abs().max().item()
+    ulp = 2.0 ** (math.floor(math.log2(largest)) - 7)  # bf16 spacing at the largest logit
+    log(f"model check: logits max|err| {max_err:.4g} ({max_err / ulp:.1f} bf16 ulps of the "
+        f"largest |logit| {largest:.4g}), relative L2 {rel:.3g}, logit std "
+        f"{logits_ref.std().item():.4g}; loss flash {loss_flash:.6f} vs reference "
+        f"{loss_ref:.6f} (|diff| {abs(loss_flash - loss_ref):.3g})")
+    if not (max_err <= MODEL_CHECK["LOGIT_ULPS"] * ulp and rel <= MODEL_CHECK["LOGIT_REL"]
+            and abs(loss_flash - loss_ref) <= MODEL_CHECK["LOSS_ABS"]):
+        raise AssertionError(f"flash and reference attention disagree beyond {MODEL_CHECK}")
+
+    # -- 6. summary
+    for r in rows:
+        r["launches"] = counts[r["name"]]
+    log(json.dumps({"kernels": rows}))
+    log(f"card: {card}")
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                             "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
