@@ -8,16 +8,23 @@ Phases, each of which fails the run (non-zero exit) on any error:
 1. device: a CUDA GPU must be present; prints its ``nvidia-smi`` name and
    power limit;
 2. build: compiles the flash-attention kernels from
-   ``easydl_tpu_torch/ops/csrc/`` with ``nvcc`` and prints the build time;
+   ``easydl_tpu_torch/ops/csrc/`` with ``nvcc`` (one process per source, all
+   at once) and prints the build time, each kernel's registers and spills
+   and, where the toolkit has ``cuobjdump``, its count of ``HGMMA`` (wgmma)
+   and ``UTMALDG`` (TMA load) instructions; fails if a tensor-core kernel
+   spills or shows none of either;
 3. kernels: holds ``flash_fwd`` (O and lse), ``flash_bwd_dq`` and
    ``flash_bwd_dkv`` (dk and dv) against their plain PyTorch versions on the
-   card, at the GPT-2 345M shape ([128, 1024, 64] bf16, causal; O and
-   gradients within 4e-3 + 1e-2·|x|, a few bf16 ulps; lse, f32 on both
-   sides, within 2e-5 + 2e-5·|x|) and at small f32 cases, one rectangular
-   causal with dead rows and ragged tails (2e-5 forward, 5e-4 gradients,
-   absolute and relative); times each kernel, its plain
-   version and ``F.scaled_dot_product_attention`` (the yardstick only) with
-   CUDA events, and reckons each kernel's bound from its shapes;
+   card, at the GPT-2 345M shape ([128, 1024, 64] bf16, causal) and at
+   small f32 and bf16 cases (a rectangular causal one with dead rows and
+   ragged tails in both lengths, a bidirectional one with ragged tails),
+   with the bounds in ``TOL``, and against autograd of the reference
+   attention on the f32 upcast of the same inputs (``REF_TOL``); prints
+   every reading; times each kernel, its plain version and
+   ``F.scaled_dot_product_attention`` (the yardstick only) with CUDA
+   events over windows of back-to-back calls (``cuda_ms``), prints the
+   host time per call beside them, and reckons each kernel's bound from
+   its shapes;
 4. main path: GPT-2 345M at full width (24 layers, d_model 1024, 16 heads,
    vocab 50304, seq 1024), bf16 model dtype, f32 masters, AdamW(2e-4,
    weight decay 0.01), global batch 16 with grad_accum 2, through the
@@ -39,6 +46,9 @@ from __future__ import annotations
 import functools
 import json
 import math
+import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -59,12 +69,16 @@ PEAK_BYTES_PER_S = 3.35e12
 
 MAIN_BH, MAIN_S, MAIN_D = 128, 1024, 64  # 345M: microbatch 8 x 16 heads
 N_LAYERS, MICROBATCHES, STEPS = 24, 2, 4  # 1 warm-up + 3 timed
-# (atol, rtol) of O and of the gradients, by dtype. bf16: both sides compute
-# in f32 from the same inputs and differ by output rounding only (measured
-# max |err| 0.00195 for O, 0 for the gradients at the main-path shape), so a
-# few bf16 ulps. f32: the JAX flash tests' own (2e-5 forward, 5e-4 grads).
-# lse is f32 on both sides and always takes the f32 forward bound.
-TOL = {torch.bfloat16: {"fwd": (4e-3, 1e-2), "grad": (4e-3, 1e-2)},
+# (atol, rtol) of O and of the gradients, by dtype. bf16: the tensor-core
+# forward and dk/dv round P, Pᵀ and dSᵀ to bf16 before their second product
+# (as the TPU kernel's default-precision dot does), the plain versions keep
+# them in f32; on an H100 SXM (700 W) at the main-path shape that measured
+# max |err| 0.0156 (O, dk) and 0.0312 (dv), 0.95 / 1.22 / 1.56 of the
+# earlier 4e-3 + 1e-2·|x|, so the bound is 1e-2 + 1e-2·|x| (dq, still exact
+# f32 products, agrees to 0). f32: the JAX flash tests' own (2e-5 forward,
+# 5e-4 grads). lse is f32 on both sides and always takes the f32 forward
+# bound.
+TOL = {torch.bfloat16: {"fwd": (1e-2, 1e-2), "grad": (1e-2, 1e-2)},
        torch.float32: {"fwd": (2e-5, 2e-5), "grad": (5e-4, 5e-4)}}
 # flash vs reference attention in the trained 345M model, bf16: logits within
 # LOGIT_ULPS bf16 ulps of the largest |logit| elementwise and LOGIT_REL in
@@ -72,7 +86,19 @@ TOL = {torch.bfloat16: {"fwd": (4e-3, 1e-2), "grad": (4e-3, 1e-2)},
 # ulp of the largest |logit| 2.64, relative L2 0.0035 (logit std 0.61),
 # loss |diff| 2.1e-5; the bounds leave about 2x (5x for the loss).
 MODEL_CHECK = {"LOGIT_ULPS": 2, "LOGIT_REL": 7e-3, "LOSS_ABS": 1e-4}
-SOURCE = "easydl_tpu_torch/ops/csrc/flash_attention.cu"
+# flash vs autograd of the reference attention on the f32-upcast inputs, for
+# the bf16 cases: the JAX flash tests' bf16 tolerance (2e-2, absolute and
+# relative); in f32 the gradient tolerance above.
+REF_TOL = {torch.bfloat16: (2e-2, 2e-2), torch.float32: TOL[torch.float32]["grad"]}
+CSRC = "easydl_tpu_torch/ops/csrc/"
+SOURCE = {
+    "flash_fwd": CSRC + "flash_fwd_sm90.cu",
+    "flash_bwd_dq": CSRC + "flash_attention.cu",
+    "flash_bwd_dkv": CSRC + "flash_bwd_dkv_sm90.cu",
+}
+# the tensor-core kernels, which must show wgmma (HGMMA) and TMA loads
+# (UTMALDG) in their SASS and no ptxas spills
+SM90_KERNELS = ("flash_fwd_sm90_kernel", "flash_bwd_dkv_sm90_kernel")
 REPLACES = {
     "flash_fwd": "easydl_tpu/ops/flash_attention.py:59",
     "flash_bwd_dq": "easydl_tpu/ops/flash_attention.py:157",
@@ -84,19 +110,101 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def cuda_ms(fn, reps: int = 15) -> float:
-    """Median over ``reps`` of one call, timed with CUDA events after 2 warm-ups."""
+def cuda_ms(fn, calls: int = 20, windows: int = 7):
+    """(device ms, host ms) per call. After 2 warm-up calls, ``windows``
+    windows of ``calls`` back-to-back calls, each window between one CUDA
+    event pair; the median over the windows of the device time and of the
+    host time spent issuing the window, each over ``calls``. A host time
+    below the device time says the window was device-bound: the launches
+    queued up ahead of the card and their cost is not in the device time."""
     for _ in range(2):
         fn()
-    events = []
-    for _ in range(reps):
+    torch.cuda.synchronize()
+    events, host = [], []
+    for _ in range(windows):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        host.append((time.perf_counter() - t0) * 1e3 / calls)
         end.record()
         events.append((start, end))
     torch.cuda.synchronize()
-    return statistics.median(s.elapsed_time(e) for s, e in events)
+    return (statistics.median(s.elapsed_time(e) / calls for s, e in events),
+            statistics.median(host))
+
+
+def device_ms(fn, calls: int = 10):
+    """(ms per call, kernel names): the device time of every kernel that
+    ``calls`` calls of ``fn`` launched, summed by ``torch.profiler``, over
+    ``calls``. For a library call through autograd, whose host cost can
+    exceed its device time, so that a window of back-to-back calls would
+    time the host."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [(e.key, e.self_device_time_total) for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.self_device_time_total > 0 and not getattr(e, "is_user_annotation", False)]
+    if not kernels:
+        raise AssertionError("the profiler saw no device time for the library call")
+    return sum(t for _, t in kernels) / 1e3 / calls, sorted(k for k, _ in kernels)
+
+
+def ptxas_report(nvcc_log: str):
+    """{kernel: (registers, spill store bytes, spill load bytes)} from
+    ``-Xptxas -v``, kernels named as ``name<dtype, head_dim>``."""
+    out, name = {}, None
+    for line in nvcc_log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = kernel_name(m.group(1))
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name:
+            out[name] = [None, int(m.group(1)), int(m.group(2))]
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name in out:
+            out[name][0] = int(m.group(1))
+            name = None
+    return out
+
+
+def kernel_name(mangled: str) -> str:
+    m = re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkv)(?:_sm90)?_kernel)I(f|13__nv_bfloat16)?Li(\d+)E",
+                  mangled)
+    if not m:
+        return mangled
+    dtype = {"f": "f32", "13__nv_bfloat16": "bf16", None: "bf16"}[m.group(2)]
+    return f"{m.group(1)}<{dtype}, {m.group(3)}>"
+
+
+def sass_counts(lib_path) -> dict:
+    """{kernel: (HGMMA, UTMALDG)} instruction counts in the library's SASS,
+    or {} where the toolkit has no cuobjdump."""
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.isfile(tool):
+        return {}
+    sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\w+)", line)
+        if m:
+            name = kernel_name(m.group(1))
+            counts[name] = [0, 0]
+        elif name:
+            counts[name][0] += "HGMMA" in line
+            counts[name][1] += "UTMALDG" in line
+    return counts
 
 
 def visible_pairs(s_q: int, s_k: int, causal: bool) -> int:
@@ -127,7 +235,9 @@ def bound(name: str, bh: int, s_q: int, s_k: int, d: int, causal: bool, itemsize
 
 
 def check_kernels(bh, s_q, s_k, d, dtype, causal, seed, timed, peak_flops=None):
-    """Each kernel against its plain version on the same card inputs."""
+    """Each kernel against its plain version on the same card inputs and
+    against autograd of the reference attention on their f32 upcast; every
+    reading is printed before a failure is raised."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     q = torch.randn(bh, s_q, d, generator=g, device="cuda").to(dtype)
     k = torch.randn(bh, s_k, d, generator=g, device="cuda").to(dtype)
@@ -144,43 +254,51 @@ def check_kernels(bh, s_q, s_k, d, dtype, causal, seed, timed, peak_flops=None):
     dq = fa.flash_bwd_dq(*args)
     dk, dv = fa.flash_bwd_dkv(*args)
     torch.cuda.synchronize()
+    failures = []
 
     def err(a, b, tol, what):
+        """max |a - b|, and the worst |a - b| / (atol + rtol·|b|): above 1 fails."""
         a, b = a.float(), b.float()
         if not torch.isfinite(a).all():
-            raise AssertionError(f"{what}: non-finite kernel output")
+            failures.append(f"{what}: non-finite kernel output")
+            return float("nan"), float("nan")
         atol, rtol = tol
         e = (a - b).abs()
-        if not bool((e <= atol + rtol * b.abs()).all()):
-            raise AssertionError(f"{what}: max |err| {e.max().item():.3g} over "
-                                 f"{atol} + {rtol}*|x|")
-        return e.max().item()
+        worst = (e / (atol + rtol * b.abs())).max().item()
+        if worst > 1:
+            failures.append(f"{what}: max |err| {e.max().item():.3g}, worst err/bound "
+                            f"{worst:.3g} over {atol} + {rtol}*|x|")
+        return e.max().item(), worst
 
     live = lse_ref < 1e38  # dead rows: both give +FLT_MAX exactly
     if not torch.equal(lse[~live], lse_ref[~live]):
-        raise AssertionError("flash_fwd: dead rows' lse differs")
-    e_o, e_lse = err(o, o_ref, tol_fwd, "flash_fwd O"), err(lse[live], lse_ref[live], tol_lse,
-                                                          "flash_fwd lse")
-    errs = {
-        "flash_fwd": max(e_o, e_lse),
-        "flash_bwd_dq": err(dq, dq_ref, tol_grad, "flash_bwd_dq"),
-        "flash_bwd_dkv": max(err(dk, dk_ref, tol_grad, "flash_bwd_dkv dk"),
-                             err(dv, dv_ref, tol_grad, "flash_bwd_dkv dv")),
+        failures.append("flash_fwd: dead rows' lse differs")
+    readings = {
+        "O": err(o, o_ref, tol_fwd, "flash_fwd O"),
+        "lse": err(lse[live], lse_ref[live], tol_lse, "flash_fwd lse"),
+        "dq": err(dq, dq_ref, tol_grad, "flash_bwd_dq"),
+        "dk": err(dk, dk_ref, tol_grad, "flash_bwd_dkv dk"),
+        "dv": err(dv, dv_ref, tol_grad, "flash_bwd_dkv dv"),
     }
+    errs = {"flash_fwd": max(readings["O"][0], readings["lse"][0]),
+            "flash_bwd_dq": readings["dq"][0],
+            "flash_bwd_dkv": max(readings["dk"][0], readings["dv"][0])}
     log(f"kernels vs plain [{bh},{s_q}/{s_k},{d}] {str(dtype)[6:]} causal={causal}: "
-        + f"flash_fwd max|err| O {e_o:.3g} lse {e_lse:.3g}, "
-        + ", ".join(f"{n} max|err| {errs[n]:.3g}" for n in ("flash_bwd_dq", "flash_bwd_dkv"))
-        + " -- ok")
-    if dtype == torch.float32:
-        # and against autograd through the einsum reference attention, which
-        # shares no code with the kernels or their plain versions
-        qkv = [x.view(bh, -1, 1, d).detach().requires_grad_() for x in (q, k, v)]
-        out = reference_attention(*qkv, causal=causal, scale=scale)
-        grads = torch.autograd.grad(out, qkv, do.view_as(out))
-        for what, a, b in (("O", o, out), ("dq", dq, grads[0]), ("dk", dk, grads[1]),
-                           ("dv", dv, grads[2])):
-            err(a, b.view_as(a), tol_grad, f"{what} vs autograd of the reference")
-        log("  ... and O, dq, dk, dv against autograd of the reference attention -- ok")
+        + ", ".join(f"{n} max|err| {e:.3g} (err/bound {w:.3g})" for n, (e, w) in readings.items()))
+    # and against autograd through the einsum reference attention on the f32
+    # upcast of the inputs, which shares no code with the kernels or the
+    # plain versions
+    qkv = [x.float().view(bh, -1, 1, d).detach().requires_grad_() for x in (q, k, v)]
+    out = reference_attention(*qkv, causal=causal, scale=scale)
+    grads = torch.autograd.grad(out, qkv, do.float().view_as(out))
+    vs_ref = {what: err(a, b.view_as(a), REF_TOL[dtype], f"{what} vs autograd of the reference")
+              for what, a, b in (("O", o, out), ("dq", dq, grads[0]), ("dk", dk, grads[1]),
+                                 ("dv", dv, grads[2]))}
+    log(f"  ... vs autograd of the reference attention (f32, within {REF_TOL[dtype]}): "
+        + ", ".join(f"{n} max|err| {e:.3g}" for n, (e, _) in vs_ref.items()))
+    if failures:
+        raise AssertionError("; ".join(failures))
+    log("  ... ok")
     if not timed:
         return None
     calls = {
@@ -193,20 +311,66 @@ def check_kernels(bh, s_q, s_k, d, dtype, causal, seed, timed, peak_flops=None):
     heads = (bh // 16, 16)
     qs, ks, vs = (x.view(*heads, -1, d).detach().requires_grad_() for x in (q, k, v))
     out = torch.nn.functional.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
-    lib_fwd = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+    lib_fwd = device_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
         qs, ks, vs, is_causal=True))
-    lib_bwd = cuda_ms(lambda: torch.autograd.grad(out, (qs, ks, vs), do.view_as(out),
+    lib_bwd = device_ms(lambda: torch.autograd.grad(out, (qs, ks, vs), do.view_as(out),
+                                                    retain_graph=True))
+    for what, (ms, names) in (("forward", lib_fwd), ("backward", lib_bwd)):
+        log(f"sdpa {what}: {ms:.4f} ms of device time a call (torch.profiler) in "
+            + "; ".join(n[:60] for n in names))
+    # the same calls timed as the kernels are: a window whose host time per
+    # call exceeds its device time per call timed the host, not the card
+    win_fwd = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qs, ks, vs, is_causal=True))
+    win_bwd = cuda_ms(lambda: torch.autograd.grad(out, (qs, ks, vs), do.view_as(out),
                                                   retain_graph=True))
-    rows = []
+    log(f"sdpa in windows of back-to-back calls: forward {win_fwd[0]:.4f} ms (host "
+        f"{win_fwd[1]:.4f}), backward {win_bwd[0]:.4f} ms (host {win_bwd[1]:.4f})")
+    rows, host = [], {}
     for name, (kern, plain) in calls.items():
         b_ms, b_by = bound(name, bh, s_q, s_k, d, causal, q.element_size(), peak_flops)
+        ms, host[name] = cuda_ms(kern)
         rows.append({
-            "name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
-            "max_abs_err": errs[name], "ms": cuda_ms(kern), "plain_ms": cuda_ms(plain, reps=5),
+            "name": name, "route": "cuda", "source": SOURCE[name], "replaces": REPLACES[name],
+            "max_abs_err": errs[name], "ms": ms,
+            "plain_ms": cuda_ms(plain, calls=2, windows=3)[0],
             "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": lib_fwd if name == "flash_fwd" else lib_bwd,
+            "library_ms": (lib_fwd if name == "flash_fwd" else lib_bwd)[0],
         })
+    log("host ms per call while the windows were issued: "
+        + ", ".join(f"{n} {t:.4f}" for n, t in host.items()))
     return rows
+
+
+def build_kernels() -> None:
+    """Builds the kernels' library; prints each kernel's registers and
+    spills (ptxas) and, where cuobjdump exists, its HGMMA and UTMALDG count;
+    fails if a tensor-core kernel spills or shows no wgmma or TMA load."""
+    t0 = time.perf_counter()
+    path, nvcc_log = build.build(fa.KERNEL_SOURCES)
+    log(f"build: {path.name} from {', '.join(fa.KERNEL_SOURCES)} in "
+        f"{time.perf_counter() - t0:.1f}s")
+    ptxas, sass = ptxas_report(nvcc_log), sass_counts(path)
+    for name, (regs, st, ld) in sorted(ptxas.items()):
+        counts = sass.get(name)
+        log(f"  {name}: {regs} registers, spill stores {st} B, loads {ld} B"
+            + (f"; SASS: {counts[0]} HGMMA, {counts[1]} UTMALDG" if counts else ""))
+    lib = fa._lib()
+    log("  CTAs per SM: " + ", ".join(
+        f"{kernel}<bf16, {d}> {lib.easydl_flash_sm90_ctas_per_sm(i, d)}"
+        for i, kernel in enumerate(SM90_KERNELS) for d in fa.HEAD_DIMS))
+    if not nvcc_log:
+        log("  (the library was built before: no ptxas report)")
+    if not sass:
+        log("  (no cuobjdump in this toolkit: SASS not counted)")
+    for kernel in SM90_KERNELS:
+        mine = [n for n in ptxas if n.startswith(kernel + "<")]
+        if nvcc_log and (not mine or any(ptxas[n][1] or ptxas[n][2] for n in mine)):
+            raise AssertionError(f"{kernel}: missing from ptxas's report or spills: "
+                                 f"{ {n: ptxas[n] for n in mine} }")
+        in_sass = [n for n in sass if n.startswith(kernel + "<")]
+        if sass and not (in_sass and all(sass[n][0] and sass[n][1] for n in in_sass)):
+            raise AssertionError(f"{kernel}: no HGMMA or no UTMALDG in its SASS")
 
 
 def profile_step(trainer, state, host_batch, step_time: float) -> None:
@@ -257,16 +421,13 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     # -- 2. build
-    t0 = time.perf_counter()
-    path, nvcc_log = build.build(fa.KERNEL_SOURCE)
-    log(f"build: {path.name} in {time.perf_counter() - t0:.1f}s")
-    for line in nvcc_log.splitlines():  # -Xptxas -v: per kernel registers and spills
-        if "entry function" in line or "Used" in line or "spill" in line:
-            log("  ptxas " + line.split("ptxas info    :")[-1].strip())
+    build_kernels()
 
     # -- 3. kernels against their plain versions
     check_kernels(6, 200, 72, 32, torch.float32, True, seed=1, timed=False)
     check_kernels(4, 136, 136, 64, torch.float32, False, seed=2, timed=False)
+    check_kernels(6, 200, 72, 32, torch.bfloat16, True, seed=4, timed=False)
+    check_kernels(4, 136, 136, 64, torch.bfloat16, False, seed=5, timed=False)
     check_kernels(8, 128, 128, 32, torch.bfloat16, True, seed=3, timed=False)
     rows = check_kernels(MAIN_BH, MAIN_S, MAIN_S, MAIN_D, torch.bfloat16, True,
                          seed=0, timed=True, peak_flops=peak)

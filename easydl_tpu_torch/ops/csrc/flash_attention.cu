@@ -5,6 +5,11 @@
 //   flash_bwd_dq_kernel  <- _bwd_dq_kernel   (the first pallas_call in _bwd)
 //   flash_bwd_dkv_kernel <- _bwd_dkv_kernel  (the second pallas_call in _bwd)
 //
+// The bf16 forward and dk/dv, the training path, are the tensor-core kernels
+// of flash_fwd_sm90.cu and flash_bwd_dkv_sm90.cu, reached from the same C
+// entry points below. This file holds dq in both dtypes and the f32 forward
+// and dk/dv: the f32 path's kernels, exact in f32, not a fallback.
+//
 // Layout: q [bh, s_q, d], k and v [bh, s_k, d], all contiguous; lse and
 // delta [bh, s_q] in f32. The softmax scale is folded into q. Causal masking
 // is bottom-right aligned: row r sees column c iff r + (s_k - s_q) >= c.
@@ -13,13 +18,13 @@
 // 64-row tile) are masked here, so no length needs a fallback.
 //
 // What bounds it. At the GPT-2 345M shape ([128, 1024, 64] bf16, causal) a
-// call does 17-34 GFLOP against 68-102 MB of traffic, so on an H100 the
-// tensor cores would bound it, at 20-35 us. This first version is the simple
-// design: one block of 256 threads per (bh, 64-row tile), K/V (or Q/dO) tiles
-// staged in shared memory as f32, every product an f32 FMA on the CUDA cores
-// from shared memory. The score tile never leaves shared memory, so traffic
-// stays O(s * d) as on the TPU; the time is bound by shared-memory loads
-// feeding the FMAs. Tensor cores (wgmma) and TMA are later work.
+// call does 17-34 GFLOP against 50-67 MB of traffic, so on an H100 the
+// tensor cores would bound it, at 20-35 us. These kernels are the simple
+// design: one block of 256 threads per (bh, 64-row tile), K/V (or Q/dO)
+// tiles staged in shared memory as f32, every product an f32 FMA on the CUDA
+// cores from shared memory. The score tile never leaves shared memory, so
+// traffic stays O(s * d) as on the TPU; the time is bound by shared-memory
+// loads feeding the FMAs.
 //
 // Every launch goes on the caller's stream, allocates nothing and returns
 // cudaGetLastError().
@@ -452,23 +457,46 @@ cudaError_t bwd_dkv(const void* q, const void* k, const void* v, const void* dou
 
 }  // namespace
 
+// The bf16 tensor-core kernels (flash_fwd_sm90.cu, flash_bwd_dkv_sm90.cu).
+cudaError_t flash_fwd_sm90(int head_dim, const void* q, const void* k, const void* v, void* o,
+                           void* lse, int bh, int s_q, int s_k, int causal, float scale,
+                           cudaStream_t stream);
+cudaError_t flash_bwd_dkv_sm90(int head_dim, const void* q, const void* k, const void* v,
+                               const void* dout, const void* lse, const void* delta, void* dk,
+                               void* dv, int bh, int s_q, int s_k, int causal, float scale,
+                               cudaStream_t stream);
+int flash_fwd_sm90_ctas_per_sm(int head_dim);
+int flash_bwd_dkv_sm90_ctas_per_sm(int head_dim);
+
 // dtype: 0 = float32, 1 = bfloat16. head_dim: 32 or 64. Anything else is
 // refused with cudaErrorInvalidValue; the Python wrapper checks first.
-#define EASYDL_DISPATCH(FN, ...)                                                  \
-  if (dtype == 0 && head_dim == 32) return (int)FN<float, 32>(__VA_ARGS__);          \
-  if (dtype == 0 && head_dim == 64) return (int)FN<float, 64>(__VA_ARGS__);          \
-  if (dtype == 1 && head_dim == 32) return (int)FN<__nv_bfloat16, 32>(__VA_ARGS__);  \
-  if (dtype == 1 && head_dim == 64) return (int)FN<__nv_bfloat16, 64>(__VA_ARGS__);  \
+#define EASYDL_DISPATCH_F32(FN, ...)                                      \
+  if (dtype == 0 && head_dim == 32) return (int)FN<float, 32>(__VA_ARGS__); \
+  if (dtype == 0 && head_dim == 64) return (int)FN<float, 64>(__VA_ARGS__);
+#define EASYDL_DISPATCH(FN, ...)                                                    \
+  EASYDL_DISPATCH_F32(FN, __VA_ARGS__)                                              \
+  if (dtype == 1 && head_dim == 32) return (int)FN<__nv_bfloat16, 32>(__VA_ARGS__); \
+  if (dtype == 1 && head_dim == 64) return (int)FN<__nv_bfloat16, 64>(__VA_ARGS__); \
   return (int)cudaErrorInvalidValue;
 
 extern "C" {
 
 const char* easydl_cuda_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
+// CTAs per SM of a bf16 tensor-core kernel (0 = forward, 1 = dk/dv), -1 on error.
+int easydl_flash_sm90_ctas_per_sm(int kernel, int head_dim) {
+  return kernel == 0 ? flash_fwd_sm90_ctas_per_sm(head_dim)
+                     : kernel == 1 ? flash_bwd_dkv_sm90_ctas_per_sm(head_dim) : -1;
+}
+
 int easydl_flash_fwd(int dtype, int head_dim, const void* q, const void* k, const void* v,
                      void* o, void* lse, int bh, int s_q, int s_k, int causal, float scale,
                      void* stream) {
-  EASYDL_DISPATCH(fwd, q, k, v, o, lse, bh, s_q, s_k, causal, scale, (cudaStream_t)stream)
+  EASYDL_DISPATCH_F32(fwd, q, k, v, o, lse, bh, s_q, s_k, causal, scale, (cudaStream_t)stream)
+  if (dtype == 1)
+    return (int)flash_fwd_sm90(head_dim, q, k, v, o, lse, bh, s_q, s_k, causal, scale,
+                               (cudaStream_t)stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 int easydl_flash_bwd_dq(int dtype, int head_dim, const void* q, const void* k, const void* v,
@@ -481,8 +509,12 @@ int easydl_flash_bwd_dq(int dtype, int head_dim, const void* q, const void* k, c
 int easydl_flash_bwd_dkv(int dtype, int head_dim, const void* q, const void* k, const void* v,
                          const void* dout, const void* lse, const void* delta, void* dk, void* dv,
                          int bh, int s_q, int s_k, int causal, float scale, void* stream) {
-  EASYDL_DISPATCH(bwd_dkv, q, k, v, dout, lse, delta, dk, dv, bh, s_q, s_k, causal, scale,
-                  (cudaStream_t)stream)
+  EASYDL_DISPATCH_F32(bwd_dkv, q, k, v, dout, lse, delta, dk, dv, bh, s_q, s_k, causal, scale,
+                      (cudaStream_t)stream)
+  if (dtype == 1)
+    return (int)flash_bwd_dkv_sm90(head_dim, q, k, v, dout, lse, delta, dk, dv, bh, s_q, s_k,
+                                   causal, scale, (cudaStream_t)stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

@@ -1,8 +1,8 @@
 """Flash attention (forward + backward): hand-written CUDA kernels for Hopper,
 and the plain PyTorch version of each.
 
-Counterpart of ``easydl_tpu/ops/flash_attention.py``. The three kernels of
-``ops/csrc/flash_attention.cu`` replace its three Pallas kernels:
+Counterpart of ``easydl_tpu/ops/flash_attention.py``. Three kernels replace
+its three Pallas kernels:
 
 - ``flash_fwd``: one q-tile against streamed K/V tiles with an online softmax;
   writes O and the row logsumexp ``lse``;
@@ -10,6 +10,13 @@ Counterpart of ``easydl_tpu/ops/flash_attention.py``. The three kernels of
   accumulates dq;
 - ``flash_bwd_dkv``: per K-tile, loops the q-tiles that can see it and
   accumulates dk and dv.
+
+In bf16, the training path, the forward and dk/dv are tensor-core kernels
+(``wgmma`` fed by TMA: ``ops/csrc/flash_fwd_sm90.cu``,
+``ops/csrc/flash_bwd_dkv_sm90.cu``) that round P and dS to bf16 before their
+second product, as the TPU kernel's default-precision dot does; dq, and all
+three in f32, are the exact-f32 kernels of ``ops/csrc/flash_attention.cu``.
+All are built into one library and reached through its C entry points.
 
 The rowwise ``delta = Σ dO∘O`` stays a plain PyTorch reduction outside the
 kernels, as the JAX package keeps it an einsum outside its kernels.
@@ -34,7 +41,7 @@ import torch
 from easydl_tpu_torch.ops import build
 from easydl_tpu_torch.ops.attention import NEG_INF, reference_attention
 
-KERNEL_SOURCE = "flash_attention.cu"
+KERNEL_SOURCES = ("flash_attention.cu", "flash_fwd_sm90.cu", "flash_bwd_dkv_sm90.cu")
 HEAD_DIMS = (32, 64)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_GRID_Y = 65535
@@ -50,13 +57,15 @@ def reset_launches() -> None:
 
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
-    lib = build.load(KERNEL_SOURCE)
+    lib = build.load(KERNEL_SOURCES)
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.easydl_flash_fwd.argtypes = [I, I, P, P, P, P, P, I, I, I, I, F, P]
     lib.easydl_flash_bwd_dq.argtypes = [I, I, P, P, P, P, P, P, P, I, I, I, I, F, P]
     lib.easydl_flash_bwd_dkv.argtypes = [I, I, P, P, P, P, P, P, P, P, I, I, I, I, F, P]
     for fn in (lib.easydl_flash_fwd, lib.easydl_flash_bwd_dq, lib.easydl_flash_bwd_dkv):
         fn.restype = I
+    lib.easydl_flash_sm90_ctas_per_sm.argtypes = [I, I]
+    lib.easydl_flash_sm90_ctas_per_sm.restype = I
     lib.easydl_cuda_error_string.argtypes = [I]
     lib.easydl_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -150,6 +159,8 @@ def _check(q, k, v, do=None, lse=None, delta=None) -> None:
     for t in (q, k, v, do, lse, delta):
         if t is not None and not t.is_contiguous():
             raise ValueError("flash kernels take contiguous tensors")
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError("flash kernels take 16-byte aligned tensors (TMA)")
 
 
 def _launch(name: str, fn, q, *args) -> None:

@@ -135,3 +135,116 @@ def test_kernel_wrappers_reject_mixed_devices():
     q = torch.zeros(1, 8, 32)
     with pytest.raises(ValueError, match="one CUDA device"):
         tfa.flash_fwd(q, q.to("meta"), q, True, 1.0)
+
+
+# ---------------------------------------------------------------------------
+# the card's tolerance against the tensor-core kernels' rounding
+# ---------------------------------------------------------------------------
+
+def _chip_smoke():
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _bf16(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.bfloat16).float()
+
+
+def _masked_scores(q, k, causal, scale):
+    s = torch.matmul(q.float(), k.float().transpose(1, 2)) * scale
+    if causal:
+        s_q, s_k = s.shape[-2:]
+        keep = torch.ones(s_q, s_k, dtype=torch.bool).tril(s_k - s_q)
+        s = s.masked_fill(~keep, tfa.NEG_INF)
+    return s
+
+
+def emulated_fwd(q, k, v, causal, scale):
+    """The bf16 tensor-core forward: f32 scores and softmax, P rounded to
+    bf16 before P·V, the row sum taken from the unrounded P."""
+    s = _masked_scores(q, k, causal, scale)
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m)
+    dead = m <= tfa.NEG_INF * 0.5
+    l = p.sum(-1, keepdim=True).clamp_min(1e-30)
+    o = torch.where(dead, 0.0, torch.matmul(_bf16(p), v.float()) / l)
+    lse = torch.where(dead, -tfa.NEG_INF, m + torch.log(l))
+    return o.to(q.dtype), lse.squeeze(-1)
+
+
+def emulated_bwd_dkv(q, k, v, do, lse, delta, causal, scale):
+    """The bf16 tensor-core dk/dv: Pᵀ and dSᵀ rounded to bf16 before their
+    products with dO and with the unscaled q; the scale applied to dk in f32."""
+    p = torch.exp(_masked_scores(q, k, causal, scale) - lse[..., None])
+    dp = torch.matmul(do.float(), v.float().transpose(1, 2))
+    ds = p * (dp - delta[..., None])
+    dv = torch.matmul(_bf16(p).transpose(1, 2), do.float())
+    dk = torch.matmul(_bf16(ds).transpose(1, 2), q.float()) * scale
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _assert_within(got, want, tol, what):
+    atol, rtol = tol
+    err = (got.float() - want.float()).abs()
+    bound = atol + rtol * want.float().abs()
+    assert bool((err <= bound).all()), (
+        f"{what}: max |err| {err.max().item():.3g}, worst err/bound "
+        f"{(err / bound).max().item():.3g} over {atol} + {rtol}*|x|")
+
+
+@pytest.mark.parametrize("s", [256, 200])
+def test_bf16_rounding_of_p_and_ds_is_inside_the_card_tolerance(s):
+    """The bf16 kernels round P (forward), Pᵀ and dSᵀ (dk/dv) to bf16 before
+    the second product, as the TPU kernel's default-precision dot does. An
+    emulation of that rounding stays inside ``chip_smoke.TOL[bfloat16]`` of
+    the plain versions, which compute those products in f32, at a bf16 causal
+    shape with a ragged length; and inside the JAX bf16 tolerance (2e-2) of
+    the Pallas kernels in interpret mode."""
+    tol = _chip_smoke().TOL[torch.bfloat16]
+    rng = np.random.default_rng(11)
+    bh, d = 8, 64
+    q, k, v, do = (rng.standard_normal((bh, s, d), dtype=np.float32) for _ in range(4))
+    tq, tk, tv, tdo = (torch.from_numpy(x).bfloat16() for x in (q, k, v, do))
+    scale = d ** -0.5
+
+    o_plain, lse_plain = tfa.flash_fwd_plain(tq, tk, tv, True, scale)
+    o_emu, lse_emu = emulated_fwd(tq, tk, tv, True, scale)
+    _assert_within(o_emu, o_plain, tol["fwd"], "O")
+    torch.testing.assert_close(lse_emu, lse_plain, rtol=0, atol=0)
+
+    delta = tfa.attention_delta(tdo, o_plain)
+    args = (tq, tk, tv, tdo, lse_plain, delta, True, scale)
+    dk_plain, dv_plain = tfa.flash_bwd_dkv_plain(*args)
+    dk_emu, dv_emu = emulated_bwd_dkv(*args)
+    _assert_within(dk_emu, dk_plain, tol["grad"], "dk")
+    _assert_within(dv_emu, dv_plain, tol["grad"], "dv")
+
+    jq, jk, jv, jdo = (jnp.asarray(x, jnp.bfloat16) for x in (q, k, v, do))
+    o_j, lse_j = jfa._fwd(jq, jk, jv, causal=True, scale=scale, block_q=s // 4,
+                          block_k=s // 4, interpret=True)
+    _, dk_j, dv_j = jfa._bwd(jq, jk, jv, o_j, lse_j, jdo, causal=True, scale=scale,
+                             block_q=s // 4, block_k=s // 4, interpret=True)
+    for got, want, what in ((o_emu, o_j, "O"), (dk_emu, dk_j, "dk"), (dv_emu, dv_j, "dv")):
+        np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+                                   atol=2e-2, rtol=2e-2, err_msg=f"{what} vs the JAX kernel")
+
+
+def test_bounds_reproduce_the_recorded_main_shape_bounds():
+    """``chip_smoke.bound`` at [128, 1024, 64] bf16 causal against 989 TFLOP/s
+    and 3.35 TB/s: 0.0202 ms (fwd, bytes), 0.0261 (dq, operations), 0.0348
+    (dkv, operations), the bounds PERF.md records."""
+    smoke = _chip_smoke()
+    assert smoke.visible_pairs(1024, 1024, True) == 1024 * 1025 // 2
+    assert smoke.visible_pairs(200, 72, True) == sum(range(1, 73))  # 128 dead rows
+    assert smoke.visible_pairs(64, 32, False) == 64 * 32
+    want = {"flash_fwd": (0.0202, "bytes"), "flash_bwd_dq": (0.0261, "operations"),
+            "flash_bwd_dkv": (0.0348, "operations")}
+    for name, (ms, by) in want.items():
+        got_ms, got_by = smoke.bound(name, 128, 1024, 1024, 64, True, 2, 989e12)
+        assert (round(got_ms, 4), got_by) == (ms, by), name

@@ -91,7 +91,42 @@ def test_runner_rejects_unported_flags(flag):
 
 def test_kernel_sources_ship_with_the_package():
     from easydl_tpu_torch.ops import build
-    from easydl_tpu_torch.ops.flash_attention import KERNEL_SOURCE
+    from easydl_tpu_torch.ops.flash_attention import KERNEL_SOURCES
 
-    assert (build.CSRC / KERNEL_SOURCE).is_file()
+    for source in KERNEL_SOURCES:
+        text = (build.CSRC / source).read_text()
+        for line in text.splitlines():  # local headers ship beside the sources
+            if line.startswith('#include "'):
+                assert (build.CSRC / line.split('"')[1]).is_file(), (source, line)
     assert build.BUILD_DIR == PORT / "_build"
+
+
+def _chip_smoke():
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("chip_smoke", REPO / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_chip_smoke_reads_ptxas_and_names_kernels():
+    """The build report that holds the tensor-core kernels to no spills:
+    ``-Xptxas -v`` lines per kernel, names demangled to name<dtype, d>."""
+    smoke = _chip_smoke()
+    fwd = ("_ZN45_GLOBAL__N__db71cd62_12_flash_fwd_sm90_cu_392b546a21"
+           "flash_fwd_sm90_kernelILi64EEEv14CUtensorMap_stS1_S1_P13__nv_bfloat16Pfiiif")
+    dq = "_ZN46_GLOBAL__N__c6954c91_1a_flash_attention_cu_19flash_bwd_dq_kernelIfLi32EEEvPKT_"
+    log = "\n".join([
+        f"ptxas info    : Compiling entry function '{fwd}' for 'sm_90a'",
+        f"ptxas info    : Function properties for {fwd}",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 106 registers, used 1 barriers",
+        f"ptxas info    : Compiling entry function '{dq}' for 'sm_90a'",
+        f"ptxas info    : Function properties for {dq}",
+        "    8 bytes stack frame, 12 bytes spill stores, 8 bytes spill loads",
+        "ptxas info    : Used 64 registers, used 1 barriers",
+    ])
+    assert smoke.ptxas_report(log) == {"flash_fwd_sm90_kernel<bf16, 64>": [106, 0, 0],
+                                       "flash_bwd_dq_kernel<f32, 32>": [64, 12, 8]}
+    assert smoke.kernel_name("_Z3foov") == "_Z3foov"
