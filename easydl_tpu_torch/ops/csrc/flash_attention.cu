@@ -5,26 +5,26 @@
 //   flash_bwd_dq_kernel  <- _bwd_dq_kernel   (the first pallas_call in _bwd)
 //   flash_bwd_dkv_kernel <- _bwd_dkv_kernel  (the second pallas_call in _bwd)
 //
-// The bf16 forward and dk/dv, the training path, are the tensor-core kernels
-// of flash_fwd_sm90.cu and flash_bwd_dkv_sm90.cu, reached from the same C
-// entry points below. This file holds dq in both dtypes and the f32 forward
-// and dk/dv: the f32 path's kernels, exact in f32, not a fallback.
+// The bf16 kernels, the training path, are the tensor-core kernels of
+// flash_fwd_sm90.cu, flash_bwd_dq_sm90.cu and flash_bwd_dkv_sm90.cu, reached
+// from the same C entry points below. This file holds the f32 path's
+// kernels, exact in f32, not a fallback.
 //
-// Layout: q [bh, s_q, d], k and v [bh, s_k, d], all contiguous; lse and
-// delta [bh, s_q] in f32. The softmax scale is folded into q. Causal masking
-// is bottom-right aligned: row r sees column c iff r + (s_k - s_q) >= c.
+// Layout: q, O and dO [bh, s_q, d], k and v [bh, s_k, d], all contiguous;
+// lse and delta [bh, s_q] in f32. The dq kernel computes delta = rowsum(dO∘O)
+// from its own tiles and writes it for dk/dv. The softmax scale is folded
+// into q. Causal masking is bottom-right aligned: row r sees column c iff
+// r + (s_k - s_q) >= c.
 // Rows that see no key write O = 0 and lse = +FLT_MAX, so the backward's
 // exp(s - lse) is exactly 0 for them. Ragged tails (s not a multiple of the
 // 64-row tile) are masked here, so no length needs a fallback.
 //
-// What bounds it. At the GPT-2 345M shape ([128, 1024, 64] bf16, causal) a
-// call does 17-34 GFLOP against 50-67 MB of traffic, so on an H100 the
-// tensor cores would bound it, at 20-35 us. These kernels are the simple
-// design: one block of 256 threads per (bh, 64-row tile), K/V (or Q/dO)
-// tiles staged in shared memory as f32, every product an f32 FMA on the CUDA
-// cores from shared memory. The score tile never leaves shared memory, so
-// traffic stays O(s * d) as on the TPU; the time is bound by shared-memory
-// loads feeding the FMAs.
+// What bounds it. The tensor cores take no exact f32 operands (TF32 would
+// round), so these kernels are the simple design: one block of 256 threads
+// per (bh, 64-row tile), K/V (or Q/dO) tiles staged in shared memory as f32,
+// every product an f32 FMA on the CUDA cores from shared memory. The score
+// tile never leaves shared memory, so traffic stays O(s * d) as on the TPU;
+// the time is bound by shared-memory loads feeding the FMAs.
 //
 // Every launch goes on the caller's stream, allocates nothing and returns
 // cudaGetLastError().
@@ -32,7 +32,6 @@
 #include <cfloat>
 #include <cstdint>
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -44,13 +43,9 @@ constexpr int LDS = BK + 1;    // row stride of a score tile (padded against ban
 constexpr float NEG_INF = -FLT_MAX;  // finfo(float32).min, the TPU kernel's sentinel
 
 __device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 // Rows [row0, row0 + 64) of a [rows, D] matrix into shared memory as f32,
 // times mul, with row stride D + 1; rows past the end are zero.
@@ -252,9 +247,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 template <typename T, int D>
 __global__ void __launch_bounds__(THREADS)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                    const T* __restrict__ dout, const float* __restrict__ lse,
-                    const float* __restrict__ delta, T* __restrict__ dq, int s_q, int s_k,
-                    int causal, float scale) {
+                    const T* __restrict__ o, const T* __restrict__ dout,
+                    const float* __restrict__ lse, float* __restrict__ delta,
+                    T* __restrict__ dq, int s_q, int s_k, int causal, float scale) {
   constexpr int LD = D + 1, DJ = D / 16;
   extern __shared__ float smem[];
   float* q_s = smem;              // [BQ][LD], scaled
@@ -270,6 +265,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   const int offset = s_k - s_q;
   q += (int64_t)bh * s_q * D;
+  o += (int64_t)bh * s_q * D;
   dout += (int64_t)bh * s_q * D;
   dq += (int64_t)bh * s_q * D;
   k += (int64_t)bh * s_k * D;
@@ -279,8 +275,22 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
 
   load_tile<T, D>(q_s, q, q0, s_q, scale);
   load_tile<T, D>(do_s, dout, q0, s_q, 1.f);
+  load_tile<T, D>(k_s, o, q0, s_q, 1.f);  // O, for Δ only: the loop reloads k_s
   load_rows(lse_s, lse, q0, s_q, FLT_MAX);
-  load_rows(dl_s, delta, q0, s_q, 0.f);
+  __syncthreads();
+  {  // Δ = rowsum(dO∘O): four threads per row, each over D/4 columns; 0 past s_q
+    const int r = threadIdx.x / 4, part = threadIdx.x % 4;
+    float sum = 0.f;
+#pragma unroll
+    for (int c = part * (D / 4); c < (part + 1) * (D / 4); ++c)
+      sum = fmaf(do_s[r * LD + c], k_s[r * LD + c], sum);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    if (part == 0) {
+      dl_s[r] = sum;
+      if (q0 + r < s_q) delta[q0 + r] = sum;
+    }
+  }
   float acc[4][DJ];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
@@ -428,16 +438,16 @@ cudaError_t fwd(const void* q, const void* k, const void* v, void* o, void* lse,
 }
 
 template <typename T, int D>
-cudaError_t bwd_dq(const void* q, const void* k, const void* v, const void* dout, const void* lse,
-                   const void* delta, void* dq, int bh, int s_q, int s_k, int causal, float scale,
-                   cudaStream_t stream) {
+cudaError_t bwd_dq(const void* q, const void* k, const void* v, const void* o, const void* dout,
+                   const void* lse, void* delta, void* dq, int bh, int s_q, int s_k, int causal,
+                   float scale, cudaStream_t stream) {
   auto kernel = flash_bwd_dq_kernel<T, D>;
   cudaError_t err = prepare(kernel, dq_smem<D>());
   if (err != cudaSuccess) return err;
   dim3 grid((s_q + BQ - 1) / BQ, bh);
   kernel<<<grid, THREADS, dq_smem<D>(), stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const T*)dout, (const float*)lse,
-      (const float*)delta, (T*)dq, s_q, s_k, causal, scale);
+      (const T*)q, (const T*)k, (const T*)v, (const T*)o, (const T*)dout, (const float*)lse,
+      (float*)delta, (T*)dq, s_q, s_k, causal, scale);
   return cudaGetLastError();
 }
 
@@ -457,7 +467,8 @@ cudaError_t bwd_dkv(const void* q, const void* k, const void* v, const void* dou
 
 }  // namespace
 
-// The bf16 tensor-core kernels (flash_fwd_sm90.cu, flash_bwd_dkv_sm90.cu).
+// The bf16 tensor-core kernels (flash_fwd_sm90.cu, flash_bwd_dq_sm90.cu,
+// flash_bwd_dkv_sm90.cu).
 cudaError_t flash_fwd_sm90(int head_dim, const void* q, const void* k, const void* v, void* o,
                            void* lse, int bh, int s_q, int s_k, int causal, float scale,
                            cudaStream_t stream);
@@ -465,28 +476,31 @@ cudaError_t flash_bwd_dkv_sm90(int head_dim, const void* q, const void* k, const
                                const void* dout, const void* lse, const void* delta, void* dk,
                                void* dv, int bh, int s_q, int s_k, int causal, float scale,
                                cudaStream_t stream);
+cudaError_t flash_bwd_dq_sm90(int head_dim, const void* q, const void* k, const void* v,
+                              const void* o, const void* dout, const void* lse, void* delta,
+                              void* dq, int bh, int s_q, int s_k, int causal, float scale,
+                              cudaStream_t stream);
 int flash_fwd_sm90_ctas_per_sm(int head_dim);
 int flash_bwd_dkv_sm90_ctas_per_sm(int head_dim);
+int flash_bwd_dq_sm90_ctas_per_sm(int head_dim);
 
 // dtype: 0 = float32, 1 = bfloat16. head_dim: 32 or 64. Anything else is
 // refused with cudaErrorInvalidValue; the Python wrapper checks first.
 #define EASYDL_DISPATCH_F32(FN, ...)                                      \
   if (dtype == 0 && head_dim == 32) return (int)FN<float, 32>(__VA_ARGS__); \
   if (dtype == 0 && head_dim == 64) return (int)FN<float, 64>(__VA_ARGS__);
-#define EASYDL_DISPATCH(FN, ...)                                                    \
-  EASYDL_DISPATCH_F32(FN, __VA_ARGS__)                                              \
-  if (dtype == 1 && head_dim == 32) return (int)FN<__nv_bfloat16, 32>(__VA_ARGS__); \
-  if (dtype == 1 && head_dim == 64) return (int)FN<__nv_bfloat16, 64>(__VA_ARGS__); \
-  return (int)cudaErrorInvalidValue;
 
 extern "C" {
 
 const char* easydl_cuda_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
-// CTAs per SM of a bf16 tensor-core kernel (0 = forward, 1 = dk/dv), -1 on error.
+// CTAs per SM of a bf16 tensor-core kernel (0 = forward, 1 = dk/dv, 2 = dq),
+// -1 on error.
 int easydl_flash_sm90_ctas_per_sm(int kernel, int head_dim) {
-  return kernel == 0 ? flash_fwd_sm90_ctas_per_sm(head_dim)
-                     : kernel == 1 ? flash_bwd_dkv_sm90_ctas_per_sm(head_dim) : -1;
+  return kernel == 0   ? flash_fwd_sm90_ctas_per_sm(head_dim)
+         : kernel == 1 ? flash_bwd_dkv_sm90_ctas_per_sm(head_dim)
+         : kernel == 2 ? flash_bwd_dq_sm90_ctas_per_sm(head_dim)
+                       : -1;
 }
 
 int easydl_flash_fwd(int dtype, int head_dim, const void* q, const void* k, const void* v,
@@ -499,11 +513,16 @@ int easydl_flash_fwd(int dtype, int head_dim, const void* q, const void* k, cons
   return (int)cudaErrorInvalidValue;
 }
 
+// dq and delta = rowsum(dO∘O) (written for flash_bwd_dkv).
 int easydl_flash_bwd_dq(int dtype, int head_dim, const void* q, const void* k, const void* v,
-                        const void* dout, const void* lse, const void* delta, void* dq, int bh,
-                        int s_q, int s_k, int causal, float scale, void* stream) {
-  EASYDL_DISPATCH(bwd_dq, q, k, v, dout, lse, delta, dq, bh, s_q, s_k, causal, scale,
-                  (cudaStream_t)stream)
+                        const void* o, const void* dout, const void* lse, void* delta, void* dq,
+                        int bh, int s_q, int s_k, int causal, float scale, void* stream) {
+  EASYDL_DISPATCH_F32(bwd_dq, q, k, v, o, dout, lse, delta, dq, bh, s_q, s_k, causal, scale,
+                      (cudaStream_t)stream)
+  if (dtype == 1)
+    return (int)flash_bwd_dq_sm90(head_dim, q, k, v, o, dout, lse, delta, dq, bh, s_q, s_k,
+                                  causal, scale, (cudaStream_t)stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 int easydl_flash_bwd_dkv(int dtype, int head_dim, const void* q, const void* k, const void* v,

@@ -43,15 +43,6 @@ struct FwdSmem {
   uint64_t q_full, full[FWD_STAGES], empty[FWD_STAGES];
 };
 
-// Key tiles that rows [r0, r0 + rows) can see (0 when they are all past s_q).
-__device__ __forceinline__ int live_key_tiles(int r0, int rows, int s_q, int s_k, int causal) {
-  const int n_k = (s_k + TILE - 1) / TILE;
-  if (r0 >= s_q) return 0;
-  if (!causal) return n_k;
-  const int last = min(r0 + rows, s_q);  // exclusive
-  return max(0, min((last + s_k - s_q + TILE - 1) / TILE, n_k));
-}
-
 template <int D>
 __global__ void __launch_bounds__(FWD_THREADS, 2)
 flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,

@@ -143,6 +143,15 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint
       : "memory");
 }
 
+// Key tiles that rows [r0, r0 + rows) can see (0 when they are all past s_q).
+__device__ __forceinline__ int live_key_tiles(int r0, int rows, int s_q, int s_k, int causal) {
+  const int n_k = (s_k + TILE - 1) / TILE;
+  if (r0 >= s_q) return 0;
+  if (!causal) return n_k;
+  const int last = min(r0 + rows, s_q);  // exclusive
+  return max(0, min((last + s_k - s_q + TILE - 1) / TILE, n_k));
+}
+
 // ---------------------------------------------------------------------------
 // device: wgmma
 // ---------------------------------------------------------------------------

@@ -6,20 +6,22 @@ its three Pallas kernels:
 
 - ``flash_fwd``: one q-tile against streamed K/V tiles with an online softmax;
   writes O and the row logsumexp ``lse``;
-- ``flash_bwd_dq``: recomputes P = exp(q·kᵀ·scale − lse) per live K-tile and
-  accumulates dq;
+- ``flash_bwd_dq``: computes Δ = rowsum(dO∘O) for its q-tile, then recomputes
+  P = exp(q·kᵀ·scale − lse) per live K-tile and accumulates dq; returns Δ
+  for dk/dv;
 - ``flash_bwd_dkv``: per K-tile, loops the q-tiles that can see it and
   accumulates dk and dv.
 
-In bf16, the training path, the forward and dk/dv are tensor-core kernels
-(``wgmma`` fed by TMA: ``ops/csrc/flash_fwd_sm90.cu``,
+In bf16, the training path, all three are tensor-core kernels (``wgmma``
+fed by TMA: ``ops/csrc/flash_fwd_sm90.cu``, ``ops/csrc/flash_bwd_dq_sm90.cu``,
 ``ops/csrc/flash_bwd_dkv_sm90.cu``) that round P and dS to bf16 before their
-second product, as the TPU kernel's default-precision dot does; dq, and all
-three in f32, are the exact-f32 kernels of ``ops/csrc/flash_attention.cu``.
-All are built into one library and reached through its C entry points.
+second product, as the TPU kernel's default-precision dot does; in f32 they
+are the exact-f32 kernels of ``ops/csrc/flash_attention.cu``. All are built
+into one library and reached through its C entry points.
 
-The rowwise ``delta = Σ dO∘O`` stays a plain PyTorch reduction outside the
-kernels, as the JAX package keeps it an einsum outside its kernels.
+The rowwise ``delta = Σ dO∘O``, an einsum in front of the JAX package's
+kernels, is computed inside the dq kernel, which already holds dO for its
+rows, and written out for dk/dv; ``attention_delta`` is its plain version.
 
 Each wrapper takes the kernel for a CUDA tensor and the plain version for a
 CPU tensor, and only the tensor's device decides: on a CUDA tensor it
@@ -41,7 +43,8 @@ import torch
 from easydl_tpu_torch.ops import build
 from easydl_tpu_torch.ops.attention import NEG_INF, reference_attention
 
-KERNEL_SOURCES = ("flash_attention.cu", "flash_fwd_sm90.cu", "flash_bwd_dkv_sm90.cu")
+KERNEL_SOURCES = ("flash_attention.cu", "flash_fwd_sm90.cu", "flash_bwd_dq_sm90.cu",
+                  "flash_bwd_dkv_sm90.cu")
 HEAD_DIMS = (32, 64)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_GRID_Y = 65535
@@ -60,7 +63,7 @@ def _lib() -> ctypes.CDLL:
     lib = build.load(KERNEL_SOURCES)
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.easydl_flash_fwd.argtypes = [I, I, P, P, P, P, P, I, I, I, I, F, P]
-    lib.easydl_flash_bwd_dq.argtypes = [I, I, P, P, P, P, P, P, P, I, I, I, I, F, P]
+    lib.easydl_flash_bwd_dq.argtypes = [I, I, P, P, P, P, P, P, P, P, I, I, I, I, F, P]
     lib.easydl_flash_bwd_dkv.argtypes = [I, I, P, P, P, P, P, P, P, P, I, I, I, I, F, P]
     for fn in (lib.easydl_flash_fwd, lib.easydl_flash_bwd_dq, lib.easydl_flash_bwd_dkv):
         fn.restype = I
@@ -105,9 +108,16 @@ def _probs_and_dscores(q, k, v, do, lse, delta, causal, scale):
     return p, p * (dp - delta[..., None])
 
 
-def flash_bwd_dq_plain(q, k, v, do, lse, delta, causal: bool, scale: float) -> torch.Tensor:
+def attention_delta(do: torch.Tensor, o: torch.Tensor) -> torch.Tensor:
+    """Δ = rowsum(dO∘O) in f32, [bh, s_q]."""
+    return (do.float() * o.float()).sum(-1)
+
+
+def flash_bwd_dq_plain(q, k, v, o, do, lse, causal: bool, scale: float):
+    """(dq, Δ) of ``_bwd_dq_kernel`` and the einsum in front of it."""
+    delta = attention_delta(do, o)
     _, ds = _probs_and_dscores(q, k, v, do, lse, delta, causal, scale)
-    return (torch.matmul(ds, k.float()) * scale).to(q.dtype)
+    return (torch.matmul(ds, k.float()) * scale).to(q.dtype), delta
 
 
 def flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal: bool, scale: float):
@@ -134,7 +144,9 @@ def _on_cpu(*tensors: torch.Tensor) -> bool:
     return False
 
 
-def _check(q, k, v, do=None, lse=None, delta=None) -> None:
+def _check(q, k, v, like_q=(), rows=()) -> None:
+    """like_q: tensors shaped and typed as q (O, dO); rows: f32 [bh, s_q]
+    (lse, Δ)."""
     if q.dtype not in _DTYPE_CODE:
         raise ValueError(f"flash kernels take float32 or bfloat16, got {q.dtype}")
     if q.dim() != 3 or k.dim() != 3 or k.shape != v.shape:
@@ -147,19 +159,20 @@ def _check(q, k, v, do=None, lse=None, delta=None) -> None:
         raise ValueError(f"head_dim {d} not in the kernels' instantiations {HEAD_DIMS}")
     if min(bh, s_q, k.shape[1]) < 1 or bh > _MAX_GRID_Y:
         raise ValueError(f"empty or oversized attention: bh={bh} s_q={s_q} s_k={k.shape[1]}")
-    for t in (k, v) + (() if do is None else (do,)):
+    for t in (k, v, *like_q):
         if t.dtype != q.dtype:
             raise ValueError(f"dtype mismatch: {t.dtype} vs q {q.dtype}")
-    if do is not None and do.shape != q.shape:
-        raise ValueError(f"dO {tuple(do.shape)} != q {tuple(q.shape)}")
-    for t in (lse, delta):
-        if t is not None and (t.dtype != torch.float32 or t.shape != (bh, s_q)):
+    for t in like_q:
+        if t.shape != q.shape:
+            raise ValueError(f"O/dO {tuple(t.shape)} != q {tuple(q.shape)}")
+    for t in rows:
+        if t.dtype != torch.float32 or t.shape != (bh, s_q):
             raise ValueError(f"lse/delta must be float32 [{bh},{s_q}], got "
                              f"{t.dtype} {tuple(t.shape)}")
-    for t in (q, k, v, do, lse, delta):
-        if t is not None and not t.is_contiguous():
+    for t in (q, k, v, *like_q, *rows):
+        if not t.is_contiguous():
             raise ValueError("flash kernels take contiguous tensors")
-        if t is not None and t.data_ptr() % 16:
+        if t.data_ptr() % 16:
             raise ValueError("flash kernels take 16-byte aligned tensors (TMA)")
 
 
@@ -191,22 +204,25 @@ def flash_fwd(q, k, v, causal: bool, scale: float) -> Tuple[torch.Tensor, torch.
     return o, lse
 
 
-def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool, scale: float) -> torch.Tensor:
-    if _on_cpu(q, k, v, do, lse, delta):
-        return flash_bwd_dq_plain(q, k, v, do, lse, delta, causal, scale)
-    _check(q, k, v, do, lse, delta)
+def flash_bwd_dq(q, k, v, o, do, lse, causal: bool, scale: float):
+    """(dq, Δ): Δ = rowsum(dO∘O) is [bh, s_q] f32, the input of
+    :func:`flash_bwd_dkv`."""
+    if _on_cpu(q, k, v, o, do, lse):
+        return flash_bwd_dq_plain(q, k, v, o, do, lse, causal, scale)
+    _check(q, k, v, like_q=(o, do), rows=(lse,))
     bh, s_q, d = q.shape
     dq = torch.empty_like(q)
+    delta = torch.empty((bh, s_q), dtype=torch.float32, device=q.device)
     _launch("flash_bwd_dq", _lib().easydl_flash_bwd_dq, q,
-            _DTYPE_CODE[q.dtype], d, _ptr(q), _ptr(k), _ptr(v), _ptr(do), _ptr(lse),
-            _ptr(delta), _ptr(dq), bh, s_q, k.shape[1], int(causal), float(scale))
-    return dq
+            _DTYPE_CODE[q.dtype], d, _ptr(q), _ptr(k), _ptr(v), _ptr(o), _ptr(do),
+            _ptr(lse), _ptr(delta), _ptr(dq), bh, s_q, k.shape[1], int(causal), float(scale))
+    return dq, delta
 
 
 def flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool, scale: float):
     if _on_cpu(q, k, v, do, lse, delta):
         return flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal, scale)
-    _check(q, k, v, do, lse, delta)
+    _check(q, k, v, like_q=(do,), rows=(lse, delta))
     bh, s_q, d = q.shape
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _launch("flash_bwd_dkv", _lib().easydl_flash_bwd_dkv, q,
@@ -215,14 +231,10 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool, scale: float):
     return dk, dv
 
 
-def attention_delta(do: torch.Tensor, o: torch.Tensor) -> torch.Tensor:
-    """Δ = rowsum(dO∘O) in f32, [bh, s_q]."""
-    return (do.float() * o.float()).sum(-1)
-
-
 class FlashAttention(torch.autograd.Function):
     """Counterpart of the JAX ``_flash`` custom_vjp over [bh, s, d] tensors:
-    saves (q, k, v, O, lse) and runs the two backward kernels."""
+    saves (q, k, v, O, lse) and runs the two backward kernels; dq's kernel
+    computes Δ and hands it to dk/dv's."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, scale: float):
@@ -235,8 +247,7 @@ class FlashAttention(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
         do = do.contiguous()
-        delta = attention_delta(do, o)
-        dq = flash_bwd_dq(q, k, v, do, lse, delta, ctx.causal, ctx.scale)
+        dq, delta = flash_bwd_dq(q, k, v, o, do, lse, ctx.causal, ctx.scale)
         dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, ctx.causal, ctx.scale)
         return dq, dk, dv, None, None
 

@@ -178,12 +178,23 @@ def emulated_fwd(q, k, v, causal, scale):
     return o.to(q.dtype), lse.squeeze(-1)
 
 
+def _p_and_ds(q, k, v, do, lse, delta, causal, scale):
+    p = torch.exp(_masked_scores(q, k, causal, scale) - lse[..., None])
+    dp = torch.matmul(do.float(), v.float().transpose(1, 2))
+    return p, p * (dp - delta[..., None])
+
+
+def emulated_bwd_dq(q, k, v, do, lse, delta, causal, scale):
+    """The bf16 tensor-core dq: dS rounded to bf16 before its product with k;
+    the scale applied to dq in f32."""
+    _, ds = _p_and_ds(q, k, v, do, lse, delta, causal, scale)
+    return (torch.matmul(_bf16(ds), k.float()) * scale).to(q.dtype)
+
+
 def emulated_bwd_dkv(q, k, v, do, lse, delta, causal, scale):
     """The bf16 tensor-core dk/dv: Pᵀ and dSᵀ rounded to bf16 before their
     products with dO and with the unscaled q; the scale applied to dk in f32."""
-    p = torch.exp(_masked_scores(q, k, causal, scale) - lse[..., None])
-    dp = torch.matmul(do.float(), v.float().transpose(1, 2))
-    ds = p * (dp - delta[..., None])
+    p, ds = _p_and_ds(q, k, v, do, lse, delta, causal, scale)
     dv = torch.matmul(_bf16(p).transpose(1, 2), do.float())
     dk = torch.matmul(_bf16(ds).transpose(1, 2), q.float()) * scale
     return dk.to(k.dtype), dv.to(v.dtype)
@@ -200,8 +211,8 @@ def _assert_within(got, want, tol, what):
 
 @pytest.mark.parametrize("s", [256, 200])
 def test_bf16_rounding_of_p_and_ds_is_inside_the_card_tolerance(s):
-    """The bf16 kernels round P (forward), Pᵀ and dSᵀ (dk/dv) to bf16 before
-    the second product, as the TPU kernel's default-precision dot does. An
+    """The bf16 kernels round P (forward), dS (dq), Pᵀ and dSᵀ (dk/dv) to bf16
+    before the second product, as the TPU kernel's default-precision dot does. An
     emulation of that rounding stays inside ``chip_smoke.TOL[bfloat16]`` of
     the plain versions, which compute those products in f32, at a bf16 causal
     shape with a ragged length; and inside the JAX bf16 tolerance (2e-2) of
@@ -218,32 +229,69 @@ def test_bf16_rounding_of_p_and_ds_is_inside_the_card_tolerance(s):
     _assert_within(o_emu, o_plain, tol["fwd"], "O")
     torch.testing.assert_close(lse_emu, lse_plain, rtol=0, atol=0)
 
-    delta = tfa.attention_delta(tdo, o_plain)
+    dq_plain, delta = tfa.flash_bwd_dq_plain(tq, tk, tv, o_plain, tdo, lse_plain, True, scale)
     args = (tq, tk, tv, tdo, lse_plain, delta, True, scale)
     dk_plain, dv_plain = tfa.flash_bwd_dkv_plain(*args)
+    dq_emu = emulated_bwd_dq(*args)
     dk_emu, dv_emu = emulated_bwd_dkv(*args)
+    _assert_within(dq_emu, dq_plain, tol["grad"], "dq")
     _assert_within(dk_emu, dk_plain, tol["grad"], "dk")
     _assert_within(dv_emu, dv_plain, tol["grad"], "dv")
 
     jq, jk, jv, jdo = (jnp.asarray(x, jnp.bfloat16) for x in (q, k, v, do))
     o_j, lse_j = jfa._fwd(jq, jk, jv, causal=True, scale=scale, block_q=s // 4,
                           block_k=s // 4, interpret=True)
-    _, dk_j, dv_j = jfa._bwd(jq, jk, jv, o_j, lse_j, jdo, causal=True, scale=scale,
-                             block_q=s // 4, block_k=s // 4, interpret=True)
-    for got, want, what in ((o_emu, o_j, "O"), (dk_emu, dk_j, "dk"), (dv_emu, dv_j, "dv")):
+    dq_j, dk_j, dv_j = jfa._bwd(jq, jk, jv, o_j, lse_j, jdo, causal=True, scale=scale,
+                                block_q=s // 4, block_k=s // 4, interpret=True)
+    for got, want, what in ((o_emu, o_j, "O"), (dq_emu, dq_j, "dq"), (dk_emu, dk_j, "dk"),
+                            (dv_emu, dv_j, "dv")):
         np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
                                    atol=2e-2, rtol=2e-2, err_msg=f"{what} vs the JAX kernel")
 
 
+@pytest.mark.parametrize("s_q,s_k,dtype", [(72, 72, jnp.float32), (64, 32, jnp.float32),
+                                           (200, 72, jnp.bfloat16)])
+def test_dq_plain_delta_matches_the_jax_einsum(s_q, s_k, dtype):
+    """Δ of ``flash_bwd_dq_plain`` against the einsum in the JAX ``_bwd``
+    (f32, 1e-6) on a ragged length and on causal rows that see no key (Δ and
+    dq exactly 0 there), and its dq against ``_bwd``'s dq, all from the same
+    Pallas forward in interpret mode."""
+    rng = np.random.default_rng(7)
+    bh, d = 4, 32
+    q, do = (rng.standard_normal((bh, s_q, d), dtype=np.float32) for _ in range(2))
+    k, v = (rng.standard_normal((bh, s_k, d), dtype=np.float32) for _ in range(2))
+    scale = d ** -0.5
+    jq, jk, jv, jdo = (jnp.asarray(x, dtype) for x in (q, k, v, do))
+    o_j, lse_j = jfa._fwd(jq, jk, jv, causal=True, scale=scale, block_q=s_q, block_k=s_k,
+                          interpret=True)
+    want = jnp.einsum("bsd,bsd->bs", jdo.astype(jnp.float32), o_j.astype(jnp.float32))
+    dq_j, _, _ = jfa._bwd(jq, jk, jv, o_j, lse_j, jdo, causal=True, scale=scale,
+                          block_q=s_q, block_k=s_k, interpret=True)
+
+    t_dtype = torch.float32 if dtype == jnp.float32 else torch.bfloat16
+    tq, tk, tv, tdo, to = (torch.from_numpy(np.array(x, np.float32)).to(t_dtype)
+                           for x in (jq, jk, jv, jdo, o_j))
+    lse = torch.from_numpy(np.array(lse_j)[..., 0])
+    dq, delta = tfa.flash_bwd_dq_plain(tq, tk, tv, to, tdo, lse, True, scale)
+    assert delta.dtype == torch.float32 and delta.shape == (bh, s_q)
+    np.testing.assert_allclose(delta.numpy(), np.asarray(want), atol=1e-6, rtol=1e-6)
+    n_dead = max(s_q - s_k, 0)
+    assert n_dead == 0 or not (delta[:, :n_dead].any() or dq[:, :n_dead].any())
+    tol = 5e-4 if dtype == jnp.float32 else 2e-2
+    np.testing.assert_allclose(dq.float().numpy(), np.asarray(dq_j, np.float32),
+                               atol=tol, rtol=tol)
+
+
 def test_bounds_reproduce_the_recorded_main_shape_bounds():
     """``chip_smoke.bound`` at [128, 1024, 64] bf16 causal against 989 TFLOP/s
-    and 3.35 TB/s: 0.0202 ms (fwd, bytes), 0.0261 (dq, operations), 0.0348
-    (dkv, operations), the bounds PERF.md records."""
+    and 3.35 TB/s: 0.0202 ms (fwd, bytes), 0.0304 (dq, bytes: it reads O
+    and writes Δ, which Δ's fusion made part of its work), 0.0348 (dkv,
+    operations), the bounds PERF.md records."""
     smoke = _chip_smoke()
     assert smoke.visible_pairs(1024, 1024, True) == 1024 * 1025 // 2
     assert smoke.visible_pairs(200, 72, True) == sum(range(1, 73))  # 128 dead rows
     assert smoke.visible_pairs(64, 32, False) == 64 * 32
-    want = {"flash_fwd": (0.0202, "bytes"), "flash_bwd_dq": (0.0261, "operations"),
+    want = {"flash_fwd": (0.0202, "bytes"), "flash_bwd_dq": (0.0304, "bytes"),
             "flash_bwd_dkv": (0.0348, "operations")}
     for name, (ms, by) in want.items():
         got_ms, got_by = smoke.bound(name, 128, 1024, 1024, 64, True, 2, 989e12)
