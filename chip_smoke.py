@@ -39,13 +39,43 @@ Phases, each of which fails the run (non-zero exit) on any error:
    their losses (bounds in ``MODEL_CHECK``); then one microbatch's
    backward through both, and through the plain backward, every
    parameter's gradient in relative L2 (``GRAD_REL``, ``QK_REF_REL``);
-6. summary: a ``kernels`` JSON line, the card line, then the result line.
+6. bench configuration: ``bench.py``'s model options on the same set-up
+   (``gpt345m.BENCH``: remat of every block under the "dots" policy), with
+   the phase 4-5 objects freed first:
+   a. 1 warm-up and 3 timed steps; each attention call launches
+      ``flash_fwd`` twice (the backward recomputes the forward) and each
+      backward kernel once; step time, tokens/s, MFU and peak memory beside
+      phase 4's; the losses equal to phase 4's, step for step (the same
+      weights, batches and kernels); one microbatch's gradients against the
+      model without remat on the same weights, within ``DOTS_REL`` in
+      relative L2;
+   b. the chunked loss (``fused_loss=True``) on the trained weights and one
+      microbatch, against the same loss with the tied head's product in f32
+      over the full logits (``gpt345m.f32_head_loss``: the f32 sums that
+      the chunked loss must keep): loss within ``FUSED_LOSS_REL``, the
+      gradients of the hidden states and the head within
+      ``FUSED_HEAD_GRAD_REL``
+      and every parameter's within ``FUSED_GRAD_REL``; prints the logits
+      path's readings (its head product rounds to bf16) beside them; a peak
+      memory at least the f32 logits' bytes below the logits path's;
+   c. a checkpoint of the trained state (params and both Adam moments) in a
+      ``tempfile.mkdtemp()`` directory, restored into a fresh ``Trainer``:
+      every tensor bit-equal, and one more step from each gives the same
+      loss and parameters; prints bytes, save seconds (snapshot, then the
+      background write) and restore seconds;
+   d. ``Evaluator.poll_once`` on that directory: its loss equals the eval
+      step's on the live state; the directory is removed afterwards;
+7. summary: a ``kernels`` JSON line (with each phase's launches), the card
+   line, then the result line.
 
-Imports only the port and torch.
+Each phase prints its seconds.
+
+Imports only the port, torch and numpy.
 """
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -54,11 +84,15 @@ import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from unittest import mock
 
+import numpy as np
 import torch
 
+from easydl_tpu_torch.core.checkpoint import CheckpointManager
+from easydl_tpu_torch.core.evaluator import Evaluator
 from easydl_tpu_torch.core.mfu import mfu, peak_flops_per_chip
 from easydl_tpu_torch.models.gpt import lm_loss
 from easydl_tpu_torch.ops import build
@@ -116,6 +150,24 @@ QK_REF_REL = 80.0
 # the bf16 cases: the JAX flash tests' bf16 tolerance (2e-2, absolute and
 # relative); in f32 the gradient tolerance above.
 REF_TOL = {torch.bfloat16: (2e-2, 2e-2), torch.float32: TOL[torch.float32]["grad"]}
+# Phase 6. "dots" against no remat, one microbatch's gradients in relative L2:
+# the recompute reruns the same deterministic kernels on the same inputs, so
+# 0 is expected; 1e-3 is the bound. The chunked loss against the same loss
+# with the head product in f32 over the full logits (its f32 sums), on one
+# microbatch of the trained weights; the readings on an H100 of the sound
+# loss and of one whose product rounds to bf16 (PERF.md, PR 4):
+# - the loss, FUSED_LOSS_REL relative: 0 sound, 3.5e-7 (4 f32 ulps) rounded;
+# - the gradient of the hidden states, relative L2: 1.24e-4 sound, 2.9e-4
+#   rounded;
+# - the head's gradient: 7.5e-3 either way, since the chunks' head gradients
+#   are summed in bf16, as the JAX op's scan sums them; its bound catches
+#   gross faults only;
+# - every parameter's gradient through the bf16 model, FUSED_GRAD_REL, key
+#   biases left out as in GRAD_REL: 0.013-0.014 either way, the model's own
+#   rounding noise.
+DOTS_REL = 1e-3
+FUSED_LOSS_REL, FUSED_GRAD_REL = 1e-7, 2e-2
+FUSED_HEAD_GRAD_REL = {"hidden": 2e-4, "head": 1e-2}
 CSRC = "easydl_tpu_torch/ops/csrc/"
 SOURCE = {
     "flash_fwd": CSRC + "flash_fwd_sm90.cu",
@@ -445,10 +497,11 @@ def grad_check(model, ref, batch) -> None:
                              + "; ".join(failures))
 
 
-def profile_step(trainer, state, host_batch, step_time: float) -> None:
+def profile_step(trainer, state, host_batch, step_time: float, label: str = "profile") -> None:
     """Device time by kernel over one traced step, grouped into attention
     kernels, matrix products and the rest; busy share = summed kernel time
-    over the untraced step time."""
+    over the untraced step time; and the host's operators with the most
+    CPU time of their own."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -470,10 +523,241 @@ def profile_step(trainer, state, host_batch, step_time: float) -> None:
         else:
             groups["other"] += ms
     total = sum(groups.values())
-    log(f"profile: {total:.1f} ms of kernels in one step ({total / 1e3 / step_time:.3f} of the "
+    log(f"{label}: {total:.1f} ms of kernels in one step ({total / 1e3 / step_time:.3f} of the "
         f"untraced step time): " + ", ".join(f"{g} {ms:.1f} ms" for g, ms in groups.items()))
     for name, ms, count in sorted(kernels, key=lambda k: -k[1])[:12]:
         log(f"  {ms:9.3f} ms  x{count:<5d} {name[:110]}")
+    host = sorted((e for e in prof.key_averages() if e.self_cpu_time_total > 0),
+                  key=lambda e: -e.self_cpu_time_total)[:8]
+    log(f"{label}, host: the operators with the most CPU time of their own (traced): "
+        + "; ".join(f"{e.key[:40]} {e.self_cpu_time_total / 1e3:.1f} ms x{e.count}"
+                    for e in host))
+
+
+class Phase:
+    """Prints a phase's seconds when it ends."""
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        log(f"phase {self.name}: {time.perf_counter() - self.t0:.1f}s")
+
+
+def rel_l2(got: dict, want: dict, skip=()) -> dict:
+    return {n: ((got[n] - g).norm() / g.norm()).item() for n, g in want.items()
+            if not n.endswith(skip)}
+
+
+def train_timed(trainer, state, data):
+    """STEPS steps from ``state``; returns (losses, grad norms, seconds of
+    each step, launches, peak GiB) with the launch counts and the peak
+    memory reset just before."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    losses, norms, step_s = [], [], []
+    for _ in range(STEPS):
+        t0 = time.perf_counter()
+        state, metrics = trainer.train_step(state, next(data))
+        losses.append(float(metrics["loss"]))  # syncs
+        norms.append(float(metrics["grad_norm"]))
+        step_s.append(time.perf_counter() - t0)
+    counts = dict(fa.launches)
+    if not all(math.isfinite(x) for x in losses + norms):
+        raise AssertionError(f"non-finite loss or grad norm: {losses} {norms}")
+    return losses, norms, step_s, counts, torch.cuda.max_memory_allocated() / 2**30
+
+
+def step_report(bundle, step_s, kind, peak_gib):
+    """(step time over the timed window, tokens/s, MFU, peak GiB)."""
+    step_time = sum(step_s[1:]) / len(step_s[1:])
+    tokens_per_s = gpt345m.GLOBAL_BATCH * gpt345m.SEQ / step_time
+    util = mfu(bundle.flops_per_sample_hint * gpt345m.GLOBAL_BATCH / step_time, 1, kind)
+    return {"step_s": step_time, "tokens_per_s": tokens_per_s, "mfu": util,
+            "peak_gib": peak_gib}
+
+
+def bench_configuration(kind: str, card: str, phase4: dict) -> dict:
+    """Phase 6 (see the module docstring). Returns each sub-phase's launches."""
+    launches = {}
+    micro = gpt345m.GLOBAL_BATCH // MICROBATCHES
+    # -- 6a. remat "dots"
+    with Phase("6a (remat dots)"):
+        bundle = gpt345m.bundle(**gpt345m.BENCH)
+        trainer = gpt345m.trainer(bundle)
+        state = trainer.init_state()
+        data = iter(bundle.make_data(gpt345m.GLOBAL_BATCH, seed=0))
+        losses, norms, step_s, counts, peak_gib = train_timed(trainer, state, data)
+        launches["6a"] = counts
+        per_call = N_LAYERS * MICROBATCHES * STEPS
+        want = {"flash_fwd": 2 * per_call, "flash_bwd_dq": per_call, "flash_bwd_dkv": per_call}
+        report = step_report(bundle, step_s, kind, peak_gib)
+        log(f"6a bench configuration (remat dots): losses {losses} (phase 4: "
+            f"{phase4['losses']}), grad norms {norms}, launches {counts} (want {want})")
+        log("6a step: " + ", ".join(
+            f"{k} {report[k]:.4f} (phase 4 {phase4[k]:.4f})" for k in report)
+            + f"; timed steps {step_s[1:]}; on {card}")
+        if counts != want:
+            raise AssertionError(f"remat dots launch counts {counts}, want {want}")
+        if losses != phase4["losses"]:
+            raise AssertionError(f"remat dots losses {losses} differ from phase 4's "
+                                 f"{phase4['losses']} on the same weights and batches")
+        profile_step(trainer, state, next(data), report["step_s"], label="6a profile")
+        plain = gpt345m.bundle().init_fn(1, trainer.device)  # phase 4's model: no remat
+        plain.load_state_dict(state.model.state_dict())
+        batch = trainer.to_device(next(data))
+        mb = {k: v[:micro] for k, v in batch.items()}
+        rel = rel_l2(gpt345m.grads(state.model, mb), gpt345m.grads(plain, mb))
+        k_bias = max(r for n, r in rel.items() if n.endswith(".k.bias"))
+        rel = {n: r for n, r in rel.items() if not n.endswith(".k.bias")}
+        worst = max(rel, key=rel.get)
+        log(f"6a gradients, remat dots vs no remat on the same weights ({micro} sequences): "
+            f"largest relative L2 {rel[worst]:.3g} ({worst}; bound {DOTS_REL}); key biases "
+            f"(rounding noise, see GRAD_REL) {k_bias:.3g}")
+        if not rel[worst] <= DOTS_REL:
+            raise AssertionError(f"remat dots gradients differ: {worst} {rel[worst]:.3g}")
+
+    # -- 6b. the chunked loss against the f32-head reference, same weights
+    with Phase("6b (fused loss)"):
+        fa.reset_launches()
+        out = {}
+        for name, loss_fn in (("logits", gpt345m.logits_loss),
+                              ("fused", gpt345m.bundle(fused_loss=True).loss_fn),
+                              ("f32 head", gpt345m.f32_head_loss)):
+            plain.zero_grad(set_to_none=True)
+            torch.cuda.synchronize()
+            resident = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            loss, _ = loss_fn(plain, mb)
+            loss.backward()
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - resident
+            grads = {n: p.grad.float() for n, p in plain.named_parameters()}
+            times = []
+            for _ in range(3):
+                plain.zero_grad(set_to_none=True)
+                t0 = time.perf_counter()
+                loss_fn(plain, mb)[0].backward()
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            out[name] = {"loss": loss.item(), "grads": grads, "peak": peak,
+                         "ms": statistics.median(times) * 1e3}
+        plain.zero_grad(set_to_none=True)
+        launches["6b"] = dict(fa.launches)
+        ref = out["f32 head"]
+        for r in (out["fused"], out["logits"]):
+            rel = rel_l2(r["grads"], ref["grads"], skip=(".k.bias",))
+            r["worst"] = max(rel, key=rel.get)
+            r["grad_rel"] = rel[r["worst"]]
+        # the loss function's own gradients (hidden states, head), where a
+        # head product rounded to bf16 shows above the model's bf16 noise
+        head = {n: gpt345m.head_loss_grads(plain, mb, fn) for n, fn in gpt345m.HEAD_LOSSES.items()}
+        for n in ("fused", "logits"):
+            out[n]["loss_rel"] = abs(head[n][0] - head["f32 head"][0]) / abs(head["f32 head"][0])
+            out[n]["head_rel"] = rel_l2(head[n][1], head["f32 head"][1])
+        fused, logits = out["fused"], out["logits"]
+        logits_f32 = micro * gpt345m.SEQ * gpt345m.VOCAB * 4
+        log(f"6b fused loss vs the f32-head reference ({micro} sequences): loss "
+            f"{head['fused'][0]!r} vs {head['f32 head'][0]!r} (relative "
+            f"{fused['loss_rel']:.3g}, bound {FUSED_LOSS_REL}); gradients of the hidden "
+            f"states and head, relative L2 {fused['head_rel']} (bound {FUSED_HEAD_GRAD_REL}); "
+            f"through the model, largest relative L2 {fused['grad_rel']:.3g} "
+            f"({fused['worst']}; bound {FUSED_GRAD_REL})")
+        log(f"6b the logits path (head product rounded to bf16) vs the same: loss "
+            f"{head['logits'][0]!r} (relative {logits['loss_rel']:.3g}); hidden states and "
+            f"head {logits['head_rel']}; through the model {logits['grad_rel']:.3g} "
+            f"({logits['worst']})")
+        log("6b peak above resident GiB / loss+backward ms (median of 3): " + ", ".join(
+            f"{n} {r['peak'] / 2**30:.3f} / {r['ms']:.1f}" for n, r in out.items())
+            + f" (f32 logits {logits_f32 / 2**30:.3f} GiB); on {card}")
+        if not (fused["loss_rel"] <= FUSED_LOSS_REL
+                and all(r <= FUSED_HEAD_GRAD_REL[k] for k, r in fused["head_rel"].items())
+                and fused["grad_rel"] <= FUSED_GRAD_REL):
+            raise AssertionError("the chunked loss lost the f32 sums of its head product")
+        if not fused["peak"] <= logits["peak"] - logits_f32:
+            raise AssertionError("the chunked loss saves less than the f32 logits")
+        del plain, out, fused, logits, ref, grads, head
+
+    # -- 6c. checkpoint round trip, 6d. the evaluator on it
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        with Phase("6c (checkpoint)"):
+            shapes = trainer.leaf_shapes(state)
+            nbytes = sum(int(np.prod(s)) * d.itemsize for s, d in shapes.values())
+            free = shutil.disk_usage(tmp).free
+            if free < 2 * nbytes:
+                raise AssertionError(f"{tmp}: {free} bytes free, under twice the state's "
+                                     f"{nbytes} bytes")
+            mgr = CheckpointManager(tmp)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mgr.save(state.step, trainer.state_leaves(state))
+            t_snap = time.perf_counter() - t0
+            mgr.wait()
+            t_io = time.perf_counter() - t0 - t_snap
+            on_disk = sum(os.path.getsize(os.path.join(d, f))
+                          for d, _, files in os.walk(tmp) for f in files)
+            restorer = gpt345m.trainer(bundle)
+            t0 = time.perf_counter()
+            restored = restorer.restore_from(mgr)
+            torch.cuda.synchronize()
+            t_restore = time.perf_counter() - t0
+            log(f"6c checkpoint of step {state.step}: {nbytes} bytes of leaves, {on_disk} on "
+                f"disk; save {t_snap:.2f}s snapshot + {t_io:.2f}s background write; restore "
+                f"{t_restore:.2f}s; {free / 2**30:.0f} GiB were free in the temp dir")
+            differ = [n for n, p in state.model.named_parameters()
+                      if not torch.equal(p, restored.model.get_parameter(n))]
+            opt_a, opt_b = state.optimizer.state, restored.optimizer.state
+            for p, q in zip(state.model.parameters(), restored.model.parameters()):
+                differ += [f"{k} of a parameter" for k in ("step", "exp_avg", "exp_avg_sq")
+                           if not torch.equal(opt_a[p][k], opt_b[q][k])]
+            if restored.step != state.step or differ:
+                raise AssertionError(f"restored step {restored.step} vs {state.step}; "
+                                     f"tensors that differ: {differ[:8]}")
+
+            def with_loss(module, batch):
+                loss, _ = bundle.eval_fn(module, batch)
+                return loss, {"loss": loss}
+
+            eval_step = trainer.build_eval_step(with_loss)
+            held_out = iter(bundle.make_data(micro, seed=1))
+            live = 0.0
+            for _ in range(2):
+                live += float(eval_step(state, next(held_out))["loss"])
+            live /= 2
+            fa.reset_launches()
+            host_batch = next(data)
+            _, m_live = trainer.train_step(state, host_batch)
+            _, m_restored = restorer.train_step(restored, host_batch)
+            launches["6c"] = dict(fa.launches)
+            after = max((p - restored.model.get_parameter(n)).abs().max().item()
+                        for n, p in state.model.named_parameters())
+            log(f"6c one more step: loss {float(m_live['loss']):.6f} live vs "
+                f"{float(m_restored['loss']):.6f} restored; parameters after it differ by "
+                f"{after:.3g} at most")
+            if float(m_live["loss"]) != float(m_restored["loss"]) or after != 0:
+                raise AssertionError("the restored state trains on differently")
+            del restored, restorer
+
+        with Phase("6d (evaluator)"):
+            fa.reset_launches()
+            ev = Evaluator(gpt345m.trainer(bundle), mgr,
+                           iter(bundle.make_data(micro, seed=1)), eval_fn=bundle.eval_fn,
+                           batches_per_eval=2)
+            result = ev.poll_once()
+            launches["6d"] = dict(fa.launches)
+            log(f"6d evaluator on step {state.step - 1}: {result}; eval step on the live "
+                f"state {live!r}")
+            if result is None or result["loss"] != live or result["step"] != state.step - 1:
+                raise AssertionError(f"evaluator {result} vs the live eval step {live!r}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches
 
 
 def main() -> int:
@@ -493,53 +777,43 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     # -- 2. build
-    build_kernels()
+    with Phase("2 (build)"):
+        build_kernels()
 
     # -- 3. kernels against their plain versions
-    check_kernels(6, 200, 72, 32, torch.float32, True, seed=1, timed=False)
-    check_kernels(4, 136, 136, 64, torch.float32, False, seed=2, timed=False)
-    check_kernels(6, 200, 72, 32, torch.bfloat16, True, seed=4, timed=False)
-    check_kernels(4, 136, 136, 64, torch.bfloat16, False, seed=5, timed=False)
-    check_kernels(8, 128, 128, 32, torch.bfloat16, True, seed=3, timed=False)
-    rows = check_kernels(MAIN_BH, MAIN_S, MAIN_S, MAIN_D, torch.bfloat16, True,
-                         seed=0, timed=True, peak_flops=peak)
-    for r in rows:
-        log(f"  {r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, bound "
-            f"{r['bound_ms']:.4f} by {r['bound_by']}, sdpa {r['library_ms']:.4f}) on {card}")
+    with Phase("3 (kernels)"):
+        check_kernels(6, 200, 72, 32, torch.float32, True, seed=1, timed=False)
+        check_kernels(4, 136, 136, 64, torch.float32, False, seed=2, timed=False)
+        check_kernels(6, 200, 72, 32, torch.bfloat16, True, seed=4, timed=False)
+        check_kernels(4, 136, 136, 64, torch.bfloat16, False, seed=5, timed=False)
+        check_kernels(8, 128, 128, 32, torch.bfloat16, True, seed=3, timed=False)
+        rows = check_kernels(MAIN_BH, MAIN_S, MAIN_S, MAIN_D, torch.bfloat16, True,
+                             seed=0, timed=True, peak_flops=peak)
+        for r in rows:
+            log(f"  {r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, bound "
+                f"{r['bound_ms']:.4f} by {r['bound_by']}, sdpa {r['library_ms']:.4f}) on {card}")
 
     # -- 4. main path: GPT-2 345M training steps
+    t_phase = time.perf_counter()
     global_batch, seq, vocab = gpt345m.GLOBAL_BATCH, gpt345m.SEQ, gpt345m.VOCAB
     bundle = gpt345m.bundle()
     trainer = gpt345m.trainer(bundle)
     state = trainer.init_state()
     data = iter(bundle.make_data(global_batch, seed=0))
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    fa.reset_launches()
-    losses, norms, step_s = [], [], []
-    for step in range(STEPS):
-        t0 = time.perf_counter()
-        state, metrics = trainer.train_step(state, next(data))
-        losses.append(float(metrics["loss"]))  # syncs
-        norms.append(float(metrics["grad_norm"]))
-        step_s.append(time.perf_counter() - t0)
-    counts = dict(fa.launches)
+    losses, norms, step_s, counts, peak_gib = train_timed(trainer, state, data)
     want = N_LAYERS * MICROBATCHES * STEPS
     log(f"main path: gpt-345m b{global_batch}/a{MICROBATCHES} seq {seq} bf16: "
         f"losses {losses}, grad norms {norms}, launches {counts}")
-    if not all(math.isfinite(x) for x in losses + norms):
-        raise AssertionError(f"non-finite loss or grad norm: {losses} {norms}")
     if abs(losses[0] - math.log(vocab)) > 1.0:
         raise AssertionError(f"first loss {losses[0]} far from ln(vocab) {math.log(vocab):.3f}")
     if counts != {name: want for name in counts}:
         raise AssertionError(f"launch counts {counts}, want {want} of each")
-    step_time = sum(step_s[1:]) / len(step_s[1:])  # the timed window over its steps
-    tokens_per_s = global_batch * seq / step_time
-    util = mfu(bundle.flops_per_sample_hint * global_batch / step_time, 1, kind)
+    phase4 = {**step_report(bundle, step_s, kind, peak_gib), "losses": losses}
+    step_time = phase4["step_s"]
     log(f"main path: step {step_time:.4f}s (timed window {sum(step_s[1:]):.4f}s over "
-        f"{len(step_s) - 1} steps {step_s[1:]}), {tokens_per_s:.0f} "
-        f"tokens/s, MFU {util:.4f} vs {peak / 1e12:.0f} TFLOP/s bf16, peak mem "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, on {card}")
+        f"{len(step_s) - 1} steps {step_s[1:]}), {phase4['tokens_per_s']:.0f} "
+        f"tokens/s, MFU {phase4['mfu']:.4f} vs {peak / 1e12:.0f} TFLOP/s bf16, peak mem "
+        f"{peak_gib:.2f} GiB, on {card}")
 
     # -- 4b. where the time goes: one more step under the profiler
     profile_step(trainer, state, next(data), step_time)
@@ -566,10 +840,18 @@ def main() -> int:
         raise AssertionError(f"flash and reference attention disagree beyond {MODEL_CHECK}")
     micro = global_batch // MICROBATCHES
     grad_check(state.model, ref, {k: v[:micro] for k, v in batch.items()})
+    log(f"phase 4-5 (main path, model check): {time.perf_counter() - t_phase:.1f}s")
 
-    # -- 6. summary
+    # -- 6. bench configuration, with the phase 4-5 objects freed
+    del state, trainer, ref, batch, logits_flash, logits_ref, diff
+    gc.collect()
+    torch.cuda.empty_cache()
+    phases = {"4": counts, **bench_configuration(kind, card, phase4)}
+
+    # -- 7. summary
     for r in rows:
         r["launches"] = counts[r["name"]]
+        r["launches_by_phase"] = {p: c[r["name"]] for p, c in phases.items()}
     log(json.dumps({"kernels": rows}))
     log(f"card: {card}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

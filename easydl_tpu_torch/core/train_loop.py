@@ -13,18 +13,24 @@ Counterpart of ``easydl_tpu/core/train_loop.py`` on one device:
 
 The state is updated in place (PyTorch's idiom; the JAX step donates and
 replaces it): :meth:`Trainer.train_step` returns the same ``TrainState``.
+
+Checkpoints hold the state in the JAX ``TrainState``'s layout and leaf keys
+(:meth:`Trainer.state_leaves`, ``core/jax_state.py``, through the model
+bundle's ``JaxLayout``), so either package restores the other's;
+:meth:`Trainer.restore_from` is the one way back in.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, Iterable, Tuple
+from typing import Any, Callable, Dict, Iterable, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 from torch.func import functional_call
 
+from easydl_tpu_torch.core import jax_state
 from easydl_tpu_torch.utils.device import require_device
 from easydl_tpu_torch.utils.logging import get_logger
 
@@ -76,6 +82,8 @@ class Trainer:
         parameters cast to ``config.compute_dtype``.
       optimizer: ``parameters -> torch.optim.Optimizer``.
       device: where to train; "cuda" unless the caller asks for "cpu".
+      jax_layout: the model's parameters in the JAX package's tree (the
+        bundle's ``jax_layout``); checkpoints need it.
     """
 
     def __init__(
@@ -85,8 +93,10 @@ class Trainer:
         optimizer: OptimizerFactory,
         config: TrainConfig,
         device="cuda",
+        jax_layout: Optional[jax_state.JaxLayout] = None,
     ):
         self.config = config
+        self.jax_layout = jax_layout
         self.device = require_device(device)
         self.init_fn = init_fn
         self.loss_fn = loss_fn
@@ -97,6 +107,37 @@ class Trainer:
         log.info("initialised state on %s (%d params)", self.device,
                  sum(p.numel() for p in model.parameters()))
         return TrainState(step=0, model=model, optimizer=self.optimizer(model.parameters()))
+
+    def _layout(self) -> jax_state.JaxLayout:
+        if self.jax_layout is None:
+            raise NotImplementedError("checkpoints need the model's jax_layout "
+                                      "(ModelBundle.jax_layout)")
+        return self.jax_layout
+
+    def state_leaves(self, state: TrainState) -> Dict[str, torch.Tensor]:
+        """``state`` as the JAX ``TrainState``'s checkpoint leaves (key ->
+        tensor on the state's device); what ``CheckpointManager.save`` takes."""
+        return jax_state.to_leaves(state.step, state.model, state.optimizer,
+                                   self.config.seed, self._layout())
+
+    def leaf_shapes(self, state: TrainState) -> jax_state.Template:
+        """(shape, dtype) of each of :meth:`state_leaves`, allocating none."""
+        return jax_state.leaf_shapes(state.model, self._layout())
+
+    def restore_from(self, checkpoint, step: Optional[int] = None) -> TrainState:
+        """A fresh state loaded from ``step`` (default: the latest) of a
+        ``CheckpointManager``, saved by this package or by the JAX one from
+        any mesh. The single entry for resuming: the runner, the evaluator
+        and ``evaluator_main`` all come through here."""
+        if step is None:
+            step = checkpoint.latest_step()
+            if step is None:
+                raise FileNotFoundError(f"no checkpoints under {checkpoint.directory}")
+        state = self.init_state()
+        leaves = checkpoint.restore(step, self.leaf_shapes(state))
+        state.step = jax_state.load_leaves(leaves, state.model, state.optimizer,
+                                           self.config.seed, self._layout())
+        return state
 
     def to_device(self, host_batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         return {k: torch.as_tensor(np.asarray(v)).to(self.device, non_blocking=True)
@@ -138,3 +179,16 @@ class Trainer:
             **{k: v * scale for k, v in aux_sum.items()},
         }
         return state, metrics
+
+    def build_eval_step(self, eval_fn: Callable):
+        """``(state, host_batch) -> aux`` of ``eval_fn(module, batch) ->
+        (loss, aux)``: no gradients, parameters cast to ``compute_dtype`` as
+        in the train step."""
+
+        def eval_step(state: TrainState, host_batch) -> Dict[str, torch.Tensor]:
+            with torch.no_grad():
+                _, aux = self._forward(_LossModule(state.model, eval_fn),
+                                       self.to_device(host_batch))
+            return aux
+
+        return eval_step

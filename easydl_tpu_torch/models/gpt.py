@@ -7,15 +7,19 @@ d_model 1024, 16 heads) is the flagship configuration.
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from easydl_tpu_torch import convert
 from easydl_tpu_torch.core.data import SyntheticTokens
+from easydl_tpu_torch.core.jax_state import JaxLayout
 from easydl_tpu_torch.core.mfu import model_flops_per_token
 from easydl_tpu_torch.models.registry import ModelBundle, register_model
 from easydl_tpu_torch.models.transformer import Transformer, TransformerConfig
+from easydl_tpu_torch.ops.fused_xent import fused_softmax_xent
 from easydl_tpu_torch.utils.device import require_device
 
 #: name -> (n_layers, d_model, n_heads)
@@ -54,12 +58,12 @@ def make_gpt(
     dropout: float = 0.0,
     moe_experts: int = 0,
     fused_loss: bool = False,
+    loss_chunk: int = 128,
     attention_fn=None,
     pipeline_fn=None,
 ) -> ModelBundle:
     for name, value in (("dropout", dropout), ("moe_experts", moe_experts),
-                        ("fused_loss", fused_loss), ("attention_fn", attention_fn),
-                        ("pipeline_fn", pipeline_fn)):
+                        ("attention_fn", attention_fn), ("pipeline_fn", pipeline_fn)):
         if value:
             raise NotImplementedError(f"gpt {name}={value!r} is not ported yet")
     n_layers, d_model, n_heads = SIZES[size]
@@ -85,7 +89,15 @@ def make_gpt(
         return model
 
     def loss_fn(model, batch):
-        loss, _ = lm_loss(model(batch["inputs"]), batch["targets"])
+        """The LM loss, through the chunked tied head (``fused_loss``: the
+        ``[B, S, V]`` logits never exist) or the full logits."""
+        if fused_loss:
+            hidden = model(batch["inputs"], return_hidden=True)
+            # the stored-f32 head in the compute dtype, as on the logits path
+            head = model.tok_emb.weight.to(hidden.dtype)
+            loss, _ = fused_softmax_xent(hidden, head, batch["targets"], chunk_size=loss_chunk)
+        else:
+            loss, _ = lm_loss(model(batch["inputs"]), batch["targets"])
         return loss, {"perplexity": torch.exp(loss)}
 
     def make_data(global_batch: int, seed: int = 0):
@@ -96,6 +108,10 @@ def make_gpt(
         init_fn=init_fn,
         loss_fn=loss_fn,
         make_data=make_data,
+        # dense GPT: evaluation is the training loss
+        eval_fn=loss_fn,
+        jax_layout=JaxLayout(to_jax=functools.partial(convert.to_jax_tree, n_heads=n_heads),
+                             from_jax=convert.from_jax_tree),
         param_count_hint=cfg.param_count,
         flops_per_sample_hint=model_flops_per_token(
             cfg.param_count, n_layers, d_model, seq_len) * seq_len,

@@ -8,7 +8,9 @@ from __future__ import annotations
 
 import importlib
 from dataclasses import dataclass
-from typing import Any, Callable, Dict
+from typing import Any, Callable, Dict, Optional
+
+from easydl_tpu_torch.core.jax_state import JaxLayout
 
 _REGISTRY: Dict[str, Callable[..., "ModelBundle"]] = {}
 _MODULES = ("gpt",)
@@ -22,6 +24,11 @@ class ModelBundle:
     init_fn: Callable  # (seed, device) -> nn.Module with f32 params
     loss_fn: Callable  # (module, batch) -> (loss, aux); batch holds tensors
     make_data: Callable  # (global_batch, seed) -> host batch iterator (numpy)
+    #: (module, batch) -> (loss, aux) for held-out evaluation; None = loss_fn
+    eval_fn: Optional[Callable] = None
+    #: the parameters in the JAX package's tree, for checkpoints in its
+    #: format; None = this model cannot be checkpointed yet
+    jax_layout: Optional[JaxLayout] = None
     param_count_hint: int = 0
     #: training FLOPs per example (fwd+bwd, PaLM appendix-B accounting) —
     #: the MFU numerator (core/mfu.py); 0 = unknown

@@ -10,6 +10,15 @@ numerics rather than torch's defaults:
   first, as flax's ``dtype=`` does, so an f32 model run on bf16-rounded
   parameters computes in f32 on those rounded values;
 - the LM head is tied: ``x @ tok_emb.T`` in the compute dtype;
+  ``forward(tokens, return_hidden=True)`` returns the post-``ln_f`` hidden
+  states instead, the input of the chunked loss (``ops/fused_xent.py``);
+- ``remat=True`` recomputes each block in the backward
+  (``torch.utils.checkpoint``): ``remat_policy="full"`` keeps only the
+  block's input, ``"dots"`` also keeps the outputs of its matrix products
+  (:data:`SAVED_PRODUCTS`) and recomputes the rest, the counterpart of
+  ``jax.checkpoint_policies.dots_saveable``. The flash forward is not a
+  product, so it runs again in the backward, as the JAX package's
+  ``pallas_call`` does;
 - init: normal(0.02) for kernels and the token embedding, residual
   projections (``out``, ``down``) × (2·n_layers)^-0.5, ``pos_emb``
   normal(0.01), zero biases, unit LayerNorm scales.
@@ -24,15 +33,39 @@ kernels for CUDA tensors.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from functools import partial
 
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.func import functional_call
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from easydl_tpu_torch.ops import multihead_attention
 
 LN_EPS = 1e-6
+REMAT_POLICIES = ("full", "dots")
+#: the ops whose outputs ``remat_policy="dots"`` keeps: matrix products.
+#: ``F.linear`` reaches ``addmm`` (through a 2-D view of a 3-D input), the
+#: reference attention's einsums ``bmm``. Nothing else is kept: a buffer that
+#: a flash kernel writes through ctypes comes from ``empty_like``, which is
+#: recomputed, so the recomputed forward launches the kernel into a fresh one.
+SAVED_PRODUCTS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+                            torch.ops.aten.bmm.default, torch.ops.aten.baddbmm.default})
+
+
+def _save_products(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    return (CheckpointPolicy.MUST_SAVE if op in SAVED_PRODUCTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _block_on(block: nn.Module, names, x: torch.Tensor, *params: torch.Tensor) -> torch.Tensor:
+    """``block(x)`` on ``params``. The recompute must see the parameters the
+    forward saw: under the trainer's ``functional_call`` those are its
+    compute-dtype casts, and by the backward the block holds the f32 masters
+    again, so they are passed to the checkpoint as inputs."""
+    return functional_call(block, dict(zip(names, params)), (x,))
 
 
 @dataclass(frozen=True)
@@ -44,8 +77,8 @@ class TransformerConfig:
     d_ff: int = 4096
     max_seq: int = 1024
     causal: bool = True
-    #: recompute each block in the backward (torch.utils.checkpoint); only
-    #: the "full" policy is ported
+    #: recompute each block in the backward (torch.utils.checkpoint) under
+    #: ``remat_policy`` ("full" or "dots")
     remat: bool = False
     remat_policy: str = "full"
     attention_impl: str = "auto"
@@ -53,9 +86,9 @@ class TransformerConfig:
     dtype: str = "float32"
 
     def __post_init__(self) -> None:
-        if self.remat and self.remat_policy != "full":
-            raise NotImplementedError(
-                f"remat_policy={self.remat_policy!r} is not ported yet (only 'full')")
+        if self.remat and self.remat_policy not in REMAT_POLICIES:
+            raise ValueError(f"remat_policy must be 'full' or 'dots', "
+                             f"got {self.remat_policy!r}")
 
     @property
     def head_dim(self) -> int:
@@ -161,16 +194,24 @@ class Transformer(nn.Module):
         self.ln_f.weight.fill_(1.0)
         self.ln_f.bias.zero_()
 
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+    def forward(self, tokens: torch.Tensor, return_hidden: bool = False) -> torch.Tensor:
+        """Logits ``[B, S, vocab]``, or the post-``ln_f`` hidden states
+        ``[B, S, d_model]`` with ``return_hidden=True``."""
         cfg = self.cfg
         dt = cfg.torch_dtype
         emb = self.tok_emb.weight.to(dt)
         seq = tokens.shape[1]
         x = F.embedding(tokens, emb) + self.pos_emb.to(dt)[None, :seq]
+        remat = {}
+        if cfg.remat and cfg.remat_policy == "dots":
+            remat["context_fn"] = partial(create_selective_checkpoint_contexts, _save_products)
         for blk in self.blocks:
             if cfg.remat:
-                x = checkpoint(blk, x, use_reentrant=False)
+                names, params = zip(*blk.named_parameters())
+                x = checkpoint(_block_on, blk, names, x, *params, use_reentrant=False, **remat)
             else:
                 x = blk(x)
         x = self.ln_f(x)
+        if return_hidden:
+            return x
         return F.linear(x, emb)

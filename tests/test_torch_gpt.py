@@ -6,6 +6,7 @@ gradient matches (5e-4, the flash tests' gradient tolerance); with the
 bf16 model dtype, logits, loss and every gradient match within bounds set
 from the measured gap (see ``test_bf16_model_dtype_matches_jax``)."""
 
+import collections
 import functools
 
 import numpy as np
@@ -24,6 +25,8 @@ from easydl_tpu_torch.convert import params_from_jax, params_to_jax  # noqa: E40
 from easydl_tpu_torch.core.data import SyntheticTokens  # noqa: E402
 from easydl_tpu_torch.models.gpt import lm_loss  # noqa: E402
 from easydl_tpu_torch.models.registry import get_model  # noqa: E402
+from easydl_tpu_torch.models.transformer import SAVED_PRODUCTS  # noqa: E402
+from torch.utils._python_dispatch import TorchDispatchMode  # noqa: E402
 
 SEQ, VOCAB, BATCH = 64, 256, 4
 N_HEADS = 4  # gpt "test": 2 layers, d_model 128, 4 heads
@@ -201,24 +204,92 @@ def test_bf16_model_dtype_matches_jax(attention_impl, emb_scale):
         assert _rel_norm(gt, gj) < 4e-2, name
 
 
-@pytest.mark.parametrize("kwargs", [{"moe_experts": 8}, {"fused_loss": True},
-                                    {"dropout": 0.1}, {"remat": True, "remat_policy": "dots"}])
+@pytest.mark.parametrize("kwargs", [{"moe_experts": 8}, {"attention_fn": print},
+                                    {"dropout": 0.1}, {"pipeline_fn": print}])
 def test_unported_options_raise(kwargs):
     with pytest.raises(NotImplementedError, match="not ported yet"):
         get_model("gpt", size="test", **kwargs)
 
 
-def test_remat_full_matches_plain_forward_and_grads():
+def test_unknown_remat_policy_raises():
+    with pytest.raises(ValueError, match="remat_policy"):
+        get_model("gpt", size="test", remat=True, remat_policy="offload")
+
+
+class _CountProducts(TorchDispatchMode):
+    """Counts the matrix products that run while it is active."""
+
+    def __init__(self):
+        super().__init__()
+        self.counts = collections.Counter()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func in SAVED_PRODUCTS:
+            self.counts[str(func)] += 1
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.parametrize("policy,attention_impl", [("full", "reference"), ("dots", "reference"),
+                                                   ("dots", "flash")])
+def test_remat_full_matches_plain_forward_and_grads(policy, attention_impl, monkeypatch):
+    """Remat recomputes the same f32 ops: loss and every gradient equal to
+    no remat exactly. "dots" recomputes no product: its backward runs the
+    products of the backward without remat, no more. With the flash path
+    (its plain versions on the CPU) the recompute runs
+    ``FlashAttention.forward`` a second time for every block, as the JAX
+    package reruns its forward ``pallas_call``."""
+    from easydl_tpu_torch.ops import flash_attention as fa
+
+    calls = []
+    fwd = fa.flash_fwd
+    monkeypatch.setattr(fa, "flash_fwd", lambda *a: calls.append(1) or fwd(*a))
     params = jax_params()
     tb = {k: torch.from_numpy(np.asarray(v)) for k, v in batch().items()}
     results = []
     for remat in (False, True):
-        bundle = get_model("gpt", size="test", seq_len=SEQ, vocab=VOCAB, remat=remat)
+        bundle = get_model("gpt", size="test", seq_len=SEQ, vocab=VOCAB, remat=remat,
+                           remat_policy=policy, attention_impl=attention_impl)
         model = bundle.init_fn(0, "cpu")
         model.load_state_dict(params_from_jax(params))
+        calls.clear()
         loss, _ = bundle.loss_fn(model, tb)
-        loss.backward()
-        results.append((loss.item(), [p.grad.clone() for p in model.parameters()]))
-    assert results[0][0] == results[1][0]
-    for a, b in zip(results[0][1], results[1][1]):
+        with _CountProducts() as products:
+            loss.backward()
+        if attention_impl == "flash":
+            assert len(calls) == (2 if remat else 1) * model.cfg.n_layers
+        results.append((loss.item(), [p.grad.clone() for p in model.parameters()],
+                        products.counts))
+    (loss_plain, grads_plain, products_plain), (loss_remat, grads_remat, products_remat) = results
+    if policy == "dots":
+        assert products_remat == products_plain
+    else:
+        assert products_remat["aten.addmm.default"] > products_plain["aten.addmm.default"] == 0
+    assert loss_plain == loss_remat
+    for a, b in zip(grads_plain, grads_remat):
         torch.testing.assert_close(a, b, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("kwargs", [{"remat": True, "remat_policy": "dots"},
+                                    {"fused_loss": True, "loss_chunk": 16}],
+                         ids=["remat-dots", "fused-loss"])
+def test_bundle_option_matches_jax(kwargs):
+    """The JAX and the port's bundles of the same configuration, on the same
+    converted weights: the loss within 1e-4 and every gradient within 5e-4
+    (f32, as ``test_every_gradient_matches_jax``)."""
+    params = jax_params()
+    b = batch()
+    bundle_j = jax_get_model("gpt", size="test", seq_len=SEQ, vocab=VOCAB, **kwargs)
+    loss_j, grads_j = jax.value_and_grad(lambda p: bundle_j.loss_fn(p, b, None)[0])(
+        jax.tree.map(jnp.asarray, params))
+
+    bundle = get_model("gpt", size="test", seq_len=SEQ, vocab=VOCAB, **kwargs)
+    model = bundle.init_fn(0, "cpu")
+    model.load_state_dict(params_from_jax(params))
+    loss, _ = bundle.loss_fn(model, {k: torch.from_numpy(np.asarray(v)) for k, v in b.items()})
+    loss.backward()
+    np.testing.assert_allclose(loss.item(), float(loss_j), atol=1e-4, rtol=1e-4)
+    grads_t = params_to_jax({n: p.grad for n, p in model.named_parameters()}, n_heads=N_HEADS)
+    flat_t = dict(jax.tree_util.tree_flatten_with_path(grads_t)[0])
+    for path, gj in jax.tree_util.tree_flatten_with_path(grads_j)[0]:
+        np.testing.assert_allclose(flat_t[path], np.asarray(gj), atol=5e-4, rtol=5e-4,
+                                   err_msg=jax.tree_util.keystr(path))

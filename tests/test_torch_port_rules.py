@@ -3,8 +3,9 @@
 - no module of ``easydl_tpu_torch/`` and not ``chip_smoke.py`` imports jax,
   flax, optax or anything of ``easydl_tpu`` (AST scan);
 - the runner trains on the CPU when asked to (``--device cpu``), and without
-  that flag, like ``chip_smoke.py``, fails on a box without a CUDA GPU with
-  a message that names the missing card;
+  that flag, like its evaluator role, the evaluator pod and
+  ``chip_smoke.py``, fails on a box without a CUDA GPU with a message that
+  names the missing card;
 - the kernel build reads its sources from the package.
 """
 
@@ -69,20 +70,25 @@ def test_runner_trains_on_cpu_when_asked():
 @pytest.mark.parametrize("args", [
     ["-m", "easydl_tpu_torch.models.run", "--model", "gpt", "--model-arg", "size=test",
      "--steps", "2"],
+    ["-m", "easydl_tpu_torch.models.run", "--model", "gpt", "--model-arg", "size=test",
+     "--role", "evaluator", "--ckpt-dir", "{tmp}", "--eval-polls", "1"],
+    ["-m", "easydl_tpu_torch.elastic.evaluator_main", "--workdir", "{tmp}"],
     ["chip_smoke.py"],
 ])
-def test_cuda_entry_points_fail_without_a_card(args):
+def test_cuda_entry_points_fail_without_a_card(args, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
-    r = _run(args, timeout=300)
+    r = _run([a.format(tmp=tmp_path) for a in args], timeout=300)
     assert r.returncode != 0
     assert "no CUDA GPU" in r.stderr, r.stderr[-2000:]
     assert '"ok": true' not in r.stdout
 
 
-@pytest.mark.parametrize("flag", [["--role", "evaluator"], ["--ckpt-dir", "x"],
+@pytest.mark.parametrize("flag", [["--role", "evaluator"], ["--ckpt-dir", "gs://bucket/run"],
                                   ["--data-dir", "x"], ["--pp", "2"], ["--profile-dir", "x"]])
 def test_runner_rejects_unported_flags(flag):
+    """``--role evaluator`` without ``--ckpt-dir`` is an error in both
+    packages; the rest are not ported yet."""
     from easydl_tpu_torch.models import run
 
     with pytest.raises(SystemExit):
