@@ -65,8 +65,33 @@ Phases, each of which fails the run (non-zero exit) on any error:
       background write) and restore seconds;
    d. ``Evaluator.poll_once`` on that directory: its loss equals the eval
       step's on the live state; the directory is removed afterwards;
-7. summary: a ``kernels`` JSON line (with each phase's launches), the card
-   line, then the result line.
+7. the distributed path (``core/mesh.py``, ``core/sharding.py``, FSDP2), with
+   phase 6's objects freed; the kernels were built in phase 2, before any
+   rank starts, and ranks only load the library:
+   a. phase 4's set-up through ``core.mesh.init_distributed`` in an NCCL
+      group of one rank, mesh dp 1 x fsdp 1 (FSDP2 over each block and the
+      root): 1 warm-up and 3 timed steps; losses within ``DIST_LOSS_ABS``
+      of phase 4's, step for step (expected equal), and the same launches;
+      step time, tokens/s, MFU and peak memory beside phase 4's; one more
+      step under the profiler, in which the step's collectives must go
+      through NCCL (at one rank NCCL launches no kernel of its own: it
+      copies, or does nothing), and which prints their and FSDP2's
+      annotated host and device time; FSDP2 must keep the gradients of a
+      skipped reduction in f32;
+   b. two ranks as two processes on ``cuda:0`` (``chip_smoke.py --rank R
+      DIR``) over gloo, named explicitly since NCCL refuses two ranks on one
+      device: ``DIST_STEPS`` steps at dp 2 and at dp 1 x fsdp 2, losses
+      within ``DIST_LOSS_ABS`` of phase 4's first ones, the parameters
+      within ``DIST_PARAM_REL`` (relative L2) of one process's after the
+      same steps; the same at fsdp 2 under an uneven mask, sound and with a
+      planted fault, which must fail the bound; every run launches each
+      kernel once per layer and microbatch on each rank;
+   c. the fsdp 2 ranks' checkpoint (each rank its own chunks, rank 0
+      commits) restored into one process: every parameter and Adam moment
+      bit-equal (sha256) to the ranks' state; prints save and restore
+      seconds;
+8. summary: a ``kernels`` JSON line (with each phase's launches, 7b's
+   summed over its ranks and runs), the card line, then the result line.
 
 Each phase prints its seconds.
 
@@ -93,6 +118,7 @@ import torch
 
 from easydl_tpu_torch.core.checkpoint import CheckpointManager
 from easydl_tpu_torch.core.evaluator import Evaluator
+from easydl_tpu_torch.core.train_loop import fsdp_params
 from easydl_tpu_torch.core.mfu import mfu, peak_flops_per_chip
 from easydl_tpu_torch.models.gpt import lm_loss
 from easydl_tpu_torch.ops import build
@@ -168,6 +194,26 @@ REF_TOL = {torch.bfloat16: (2e-2, 2e-2), torch.float32: TOL[torch.float32]["grad
 DOTS_REL = 1e-3
 FUSED_LOSS_REL, FUSED_GRAD_REL = 1e-7, 2e-2
 FUSED_HEAD_GRAD_REL = {"hidden": 2e-4, "head": 1e-2}
+# Phase 7, the distributed path on the one card. 7a runs phase 4's set-up
+# through an NCCL group of one rank (mesh dp 1 x fsdp 1): the same weights,
+# batches and kernels, so its losses are expected equal to phase 4's;
+# DIST_LOSS_ABS is the bound. 7b runs two ranks as two processes on cuda:0
+# over gloo (NCCL refuses two ranks on one device) for DIST_STEPS steps at
+# dp 2 and at dp 1 x fsdp 2: losses within DIST_LOSS_ABS of phase 4's first
+# ones; the parameters after the steps within DIST_PARAM_REL, in relative
+# L2, of one process's on the same batches. The same at fsdp 2 under an
+# uneven mask of the targets (the first rank of each microbatch keeps 64
+# targets a row, the second all 1024), sound and with a planted fault (each
+# rank's local mean, averaged), shows what the bound tells apart: on an
+# H100 SXM (700 W) the sound runs read 3.40e-4 (dp 2, fsdp 2) and 3.19e-4
+# (uneven), the fault 1.77e-2; the bound sits between, 5.9x above the one
+# and 8.8x below the other. bf16 rounds each rank's product over its half
+# of the rows, so the sound reading is not 0.
+DIST_LOSS_ABS = 2e-3
+DIST_STEPS = 2
+DIST_PARAM_REL = 2e-3
+DIST_DEADLINE_S = 600  # 7b's two ranks, from their start to their exit
+DIST_MASK_KEEP = 64
 CSRC = "easydl_tpu_torch/ops/csrc/"
 SOURCE = {
     "flash_fwd": CSRC + "flash_fwd_sm90.cu",
@@ -497,11 +543,13 @@ def grad_check(model, ref, batch) -> None:
                              + "; ".join(failures))
 
 
-def profile_step(trainer, state, host_batch, step_time: float, label: str = "profile") -> None:
+def profile_step(trainer, state, host_batch, step_time: float, label: str = "profile") -> dict:
     """Device time by kernel over one traced step, grouped into attention
     kernels, matrix products and the rest; busy share = summed kernel time
     over the untraced step time; and the host's operators with the most
-    CPU time of their own."""
+    CPU time of their own. Returns the step's annotated ranges: on the
+    device (``"device"``: name, ms, count) and the host time of the
+    optimizer's, FSDP2's and the collectives' (``"host"``: name -> ms)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -510,9 +558,19 @@ def profile_step(trainer, state, host_batch, step_time: float, label: str = "pro
     kernels = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
                and not getattr(e, "is_user_annotation", False)]  # annotations span kernels
+    spans = [(e.key, max(e.self_device_time_total, e.device_time_total) / 1e3, e.count)
+             for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and getattr(e, "is_user_annotation", False)]
+    ranges: dict = {}  # host time of annotated ranges, summed over blocks
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CPU and (
+                e.key.startswith(("Optimizer.step", "FSDP::", "nccl:"))):
+            name = e.key.split(" (")[0]
+            ranges[name] = ranges.get(name, 0.0) + e.cpu_time_total / 1e3
     if not kernels:
         log("profile: the profiler saw no device time; breakdown not measured")
-        return
+        return {"device": spans, "host": ranges}
     groups = {"flash attention kernels": 0.0, "matrix products": 0.0, "other": 0.0}
     for name, ms, _ in kernels:
         low = name.lower()
@@ -532,6 +590,9 @@ def profile_step(trainer, state, host_batch, step_time: float, label: str = "pro
     log(f"{label}, host: the operators with the most CPU time of their own (traced): "
         + "; ".join(f"{e.key[:40]} {e.self_cpu_time_total / 1e3:.1f} ms x{e.count}"
                     for e in host))
+    log(f"{label}, host time of annotated ranges (traced, with what they call): "
+        + "; ".join(f"{n} {ms:.1f} ms" for n, ms in sorted(ranges.items(), key=lambda kv: -kv[1])))
+    return {"device": spans, "host": ranges}
 
 
 class Phase:
@@ -760,6 +821,304 @@ def bench_configuration(kind: str, card: str, phase4: dict) -> dict:
     return launches
 
 
+def whole(t: torch.Tensor) -> torch.Tensor:
+    """``t`` whole on every rank (every rank calls this together): the shards
+    of a sharded tensor all-gathered with the c10d collective, since
+    ``DTensor.full_tensor``'s functional collectives crash (SIGSEGV) over
+    gloo on CUDA tensors in torch 2.11."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Shard
+
+    if not isinstance(t, DTensor):
+        return t
+    local = t.to_local().detach()
+    shards = [(pl.dim, m) for m, pl in enumerate(t.placements) if isinstance(pl, Shard)]
+    if not shards:
+        return local
+    (dim, m), = shards
+    parts = [torch.empty_like(local) for _ in range(t.device_mesh.size(m))]
+    dist.all_gather(parts, local.contiguous(), group=t.device_mesh.get_group(m))
+    out = torch.cat(parts, dim=dim)
+    if out.shape != t.shape:
+        raise AssertionError(f"uneven shards: {tuple(out.shape)} gathered, {tuple(t.shape)} held")
+    return out
+
+
+def state_hashes(state) -> dict:
+    """sha256 of every parameter and Adam moment, whole (a sharded tensor is
+    gathered first: every rank calls this together), and the Adam step."""
+    import hashlib
+
+    out = {"step": state.step}
+    opt = state.optimizer.state
+    for name, p in state.model.named_parameters():
+        for kind, t in (("", p), (" exp_avg", opt[p]["exp_avg"]),
+                        (" exp_avg_sq", opt[p]["exp_avg_sq"])):
+            data = whole(t).detach().cpu().numpy().tobytes()
+            out[name + kind] = hashlib.sha256(data).hexdigest()
+        out[name + " count"] = int(opt[p]["step"])
+    return out
+
+
+def uneven(batch: dict) -> dict:
+    """Phase 7b's uneven mask: in each microbatch the first rank's rows keep
+    DIST_MASK_KEEP targets, the second rank's all of them."""
+    targets = batch["targets"].copy()
+    micro = gpt345m.GLOBAL_BATCH // MICROBATCHES
+    for i in range(MICROBATCHES):
+        targets[i * micro:i * micro + micro // 2, DIST_MASK_KEEP:] = -1
+    return {"inputs": batch["inputs"], "targets": targets}
+
+
+def mean_of_local_means(total, count):
+    """7b's planted fault, in ``models.gpt.lm_loss``'s place of ``batch_sum``:
+    each rank's own masked mean, averaged over the two ranks."""
+    from easydl_tpu_torch.core.mesh import batch_sum
+
+    (mean,) = batch_sum(total / count.clamp_min(1.0))
+    return mean / 2, torch.ones_like(count)
+
+
+def rank_main(rank: int, work: str) -> int:
+    """One of 7b's two ranks (``chip_smoke.py --rank R WORKDIR``): joins a
+    gloo group of two on cuda:0, runs the runs of ``WORKDIR/spec.json`` and
+    rank 0 writes their readings to ``WORKDIR/result.json``. The kernels'
+    library was built by the parent: this process only loads it."""
+    import faulthandler
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    from easydl_tpu_torch.core.mesh import MeshSpec, init_distributed
+    from easydl_tpu_torch.models import gpt
+
+    faulthandler.enable()  # a crash in a collective leaves its stack in the rank's log
+
+    with open(os.path.join(work, "spec.json")) as f:
+        runs = json.load(f)["runs"]
+    init_distributed("cuda:0", backend="gloo", rank=rank, world_size=2,
+                     store=dist.FileStore(os.path.join(work, "store"), 2),
+                     timeout=timedelta(seconds=DIST_DEADLINE_S))
+    fa._lib()
+    rows = slice(rank * gpt345m.GLOBAL_BATCH // 2, (rank + 1) * gpt345m.GLOBAL_BATCH // 2)
+    refs = {}
+    if rank == 0:  # one process's parameters after the same steps on the same batches
+        for masked in sorted({run["uneven"] for run in runs}):
+            bundle = gpt345m.bundle()
+            trainer = gpt345m.trainer(bundle, device="cuda:0")
+            state = trainer.init_state()
+            data = iter(bundle.make_data(gpt345m.GLOBAL_BATCH, seed=0))
+            for _ in range(DIST_STEPS):
+                batch = next(data)
+                state, _ = trainer.train_step(state, uneven(batch) if masked else batch)
+            refs[masked] = {n: p.detach() for n, p in state.model.named_parameters()}
+            del state, trainer
+    dist.barrier()
+    out = {}
+    real_batch_sum = gpt.batch_sum
+    for run in runs:
+        bundle = gpt345m.bundle()
+        if run["fault"]:
+            gpt.batch_sum = mean_of_local_means
+        trainer = gpt345m.trainer(bundle, device="cuda:0", mesh_spec=MeshSpec(**run["mesh"]))
+        state = trainer.init_state()
+        data = iter(bundle.make_data(gpt345m.GLOBAL_BATCH, seed=0))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launches()
+        losses, t0 = [], time.perf_counter()
+        for _ in range(DIST_STEPS):
+            batch = next(data)
+            batch = uneven(batch) if run["uneven"] else batch
+            state, metrics = trainer.train_step(state, {k: v[rows] for k, v in batch.items()})
+            losses.append(float(metrics["loss"]))
+        seconds = time.perf_counter() - t0
+        launches = [None, None]
+        dist.all_gather_object(launches, dict(fa.launches))
+        gpt.batch_sum = real_batch_sum
+        diff = norm = 0.0
+        for name, p in state.model.named_parameters():
+            full = whole(p)
+            if rank == 0:
+                diff += (full - refs[run["uneven"]][name]).square().sum().item()
+                norm += refs[run["uneven"]][name].square().sum().item()
+        res = {"losses": losses, "seconds": seconds, "launches": launches,
+               "rel": math.sqrt(diff / norm) if norm else None,
+               "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+        if run["save"]:
+            mgr = CheckpointManager(run["save"])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mgr.save(state.step, trainer.state_leaves(state))
+            t_snap = time.perf_counter() - t0
+            mgr.wait()
+            res["save_s"] = [t_snap, time.perf_counter() - t0 - t_snap]
+            res["hashes"] = state_hashes(state)
+        out[run["name"]] = res
+        del state, trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+    if rank == 0:
+        with open(os.path.join(work, "result.json"), "w") as f:
+            json.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def nccl_world1(kind: str, card: str, phase4: dict) -> dict:
+    """7a (see the module docstring). Returns its launches."""
+    import torch.distributed as dist
+
+    from easydl_tpu_torch.core.mesh import MeshSpec, init_distributed
+
+    store = tempfile.mkdtemp(prefix="chip_smoke_store_")
+    init_distributed("cuda:0", rank=0, world_size=1, local_rank=0,
+                     store=dist.FileStore(os.path.join(store, "store"), 1))
+    try:
+        bundle = gpt345m.bundle()
+        trainer = gpt345m.trainer(bundle, mesh_spec=MeshSpec(dp=1))
+        state = trainer.init_state()
+        data = iter(bundle.make_data(gpt345m.GLOBAL_BATCH, seed=0))
+        losses, norms, step_s, counts, peak_gib = train_timed(trainer, state, data)
+        report = step_report(bundle, step_s, kind, peak_gib)
+        log(f"7a NCCL world 1, dp 1 x fsdp 1 (backend {dist.get_backend()}): losses {losses} "
+            f"(phase 4: {phase4['losses']}), grad norms {norms}, launches {counts}")
+        log("7a vs phase 4, " + ", ".join(
+            f"{k} {report[k]:.4f} (phase 4 {phase4[k]:.4f})" for k in report) + f", on {card}")
+        worst = max(abs(a - b) for a, b in zip(losses, phase4["losses"]))
+        if worst > DIST_LOSS_ABS:
+            raise AssertionError(f"7a losses {losses} differ from phase 4's {phase4['losses']} "
+                                 f"by {worst:.3g} > {DIST_LOSS_ABS}")
+        if counts != phase4["counts"]:
+            raise AssertionError(f"7a launches {counts} != phase 4's {phase4['counts']}")
+        ranges = profile_step(trainer, state, next(data), report["step_s"], label="7a profile")
+        nccl, fsdp = {}, {}  # name -> [device ms, count], FSDP2's summed over blocks
+        for n, ms, c in ranges["device"]:
+            group = nccl if n.startswith("nccl:") else fsdp if n.startswith("FSDP::") else None
+            if group is not None:
+                acc = group.setdefault(n.split(" (")[0], [0.0, 0])
+                acc[0] += ms
+                acc[1] += c
+        issued = sorted(n for n in ranges["host"] if n.startswith("nccl:"))
+        log(f"7a profile: NCCL collectives issued {issued}; device time of the annotated "
+            "ranges: NCCL " + (", ".join(f"{n} {ms:.3f} ms x{c}" for n, (ms, c) in nccl.items())
+                               or "none caught (at one rank NCCL copies or does nothing)")
+            + "; FSDP2 " + ", ".join(f"{n} {ms:.3f} ms x{c}" for n, (ms, c) in fsdp.items()))
+        # at one rank NCCL launches no kernel of its own: the check is that
+        # the step's collectives went through the NCCL process group
+        if dist.get_backend() != "nccl" or not issued:
+            raise AssertionError(f"no NCCL collective in the profiled step (backend "
+                                 f"{dist.get_backend()}): {sorted(ranges['host'])}")
+        # FSDP2 keeps the gradients it does not reduce yet in its reduce dtype
+        batch = trainer.to_device(next(data))
+        state.model.set_requires_gradient_sync(False)
+        loss, _ = bundle.loss_fn(state.model, {k: v[:2] for k, v in batch.items()})
+        loss.backward()
+        dtypes = sorted({str(fp.unsharded_accumulated_grad.dtype)
+                         for fp in fsdp_params(state.model)})
+        log(f"7a gradients of a skipped reduction accumulate in {dtypes} "
+            f"(torch {torch.__version__})")
+        if dtypes != ["torch.float32"]:
+            raise AssertionError(f"FSDP2 accumulates skipped reductions in {dtypes}, not f32")
+        del state, trainer
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+    return counts
+
+
+def two_ranks(phase4: dict) -> dict:
+    """7b and 7c (see the module docstring). Returns 7b's launches."""
+    work = tempfile.mkdtemp(prefix="chip_smoke_ranks_")
+    ckpt = os.path.join(work, "ckpt")
+    runs = [{"name": "dp 2", "mesh": {"dp": 2}, "uneven": False, "fault": False, "save": ""},
+            {"name": "fsdp 2", "mesh": {"fsdp": 2}, "uneven": False, "fault": False,
+             "save": ckpt},
+            {"name": "fsdp 2 uneven", "mesh": {"fsdp": 2}, "uneven": True, "fault": False,
+             "save": ""},
+            {"name": "fsdp 2 uneven, planted fault", "mesh": {"fsdp": 2}, "uneven": True,
+             "fault": True, "save": ""}]
+    try:
+        with Phase("7b (two ranks over gloo)"):
+            with open(os.path.join(work, "spec.json"), "w") as f:
+                json.dump({"runs": runs}, f)
+            logs = [open(os.path.join(work, f"rank{r}.log"), "w") for r in range(2)]
+            procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--rank",
+                                       str(r), work], stdout=logs[r], stderr=subprocess.STDOUT)
+                     for r in range(2)]
+            deadline = time.monotonic() + DIST_DEADLINE_S
+            try:
+                while any(p.poll() is None for p in procs) and time.monotonic() < deadline:
+                    if any(p.poll() not in (None, 0) for p in procs):
+                        break
+                    time.sleep(0.5)
+            finally:
+                for p in procs:
+                    if p.poll() is None:
+                        p.kill()
+                    p.wait()
+                for f in logs:
+                    f.close()
+            rcs = [p.returncode for p in procs]
+            if rcs != [0, 0]:
+                for r in range(2):
+                    with open(os.path.join(work, f"rank{r}.log")) as f:
+                        print(f"--- 7b rank {r} (rc {rcs[r]}):\n{f.read()[-4000:]}",
+                              file=sys.stderr)
+                raise AssertionError(f"7b ranks exited {rcs} (killed at the {DIST_DEADLINE_S}s "
+                                     "deadline if negative)")
+            with open(os.path.join(work, "result.json")) as f:
+                res = json.load(f)
+            per_rank = N_LAYERS * MICROBATCHES * DIST_STEPS
+            total = {k: 0 for k in fa.launches}
+            failures = []
+            for run in runs:
+                r = res[run["name"]]
+                log(f"7b {run['name']}: losses {r['losses']}, {r['seconds']:.2f}s for "
+                    f"{DIST_STEPS} steps, peak mem {r['peak_gib']:.2f} GiB (rank 0), parameters "
+                    f"vs one process relative L2 {r['rel']:.4g} (bound {DIST_PARAM_REL}), "
+                    f"launches by rank {r['launches']}")
+                for counts in r["launches"]:
+                    for k, v in counts.items():
+                        total[k] += v
+                    if counts != {k: per_rank for k in counts}:
+                        failures.append(f"{run['name']}: launches {counts}, want {per_rank}")
+                if run["fault"]:
+                    if r["rel"] <= DIST_PARAM_REL:
+                        failures.append(f"the planted fault passes: {r['rel']:.4g}")
+                    continue
+                if not r["rel"] <= DIST_PARAM_REL:
+                    failures.append(f"{run['name']}: parameters {r['rel']:.4g} from one process's")
+                if not run["uneven"]:
+                    worst = max(abs(a - b) for a, b in zip(r["losses"], phase4["losses"]))
+                    if worst > DIST_LOSS_ABS:
+                        failures.append(f"{run['name']}: losses {r['losses']} vs phase 4's "
+                                        f"{phase4['losses'][:DIST_STEPS]}")
+            if failures:
+                raise AssertionError("7b: " + "; ".join(failures))
+
+        with Phase("7c (the two-rank save restored in one process)"):
+            saved = res["fsdp 2"]
+            restorer = gpt345m.trainer(gpt345m.bundle())
+            t0 = time.perf_counter()
+            restored = restorer.restore_from(CheckpointManager(ckpt))
+            torch.cuda.synchronize()
+            t_restore = time.perf_counter() - t0
+            got = state_hashes(restored)
+            differ = [k for k in saved["hashes"] if got.get(k) != saved["hashes"][k]]
+            log(f"7c checkpoint of the fsdp 2 ranks at step {saved['hashes']['step']}: save "
+                f"{saved['save_s'][0]:.2f}s snapshot + {saved['save_s'][1]:.2f}s write and "
+                f"commit; restore in one process {t_restore:.2f}s; {len(got) - 1} tensors and "
+                f"counts compared, {len(differ)} differ {differ[:6]}")
+            if differ or set(got) != set(saved["hashes"]):
+                raise AssertionError("7c: the restored state is not the saved one")
+            del restored, restorer
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return total
+
+
 def main() -> int:
     # -- 1. device
     if not torch.cuda.is_available():
@@ -848,7 +1207,16 @@ def main() -> int:
     torch.cuda.empty_cache()
     phases = {"4": counts, **bench_configuration(kind, card, phase4)}
 
-    # -- 7. summary
+    # -- 7. the distributed path, with phase 6's objects freed
+    gc.collect()
+    torch.cuda.empty_cache()
+    with Phase("7a (NCCL, world 1)"):
+        phases["7a"] = nccl_world1(kind, card, {**phase4, "counts": counts})
+    gc.collect()
+    torch.cuda.empty_cache()
+    phases["7b"] = two_ranks(phase4)
+
+    # -- 8. summary
     for r in rows:
         r["launches"] = counts[r["name"]]
         r["launches_by_phase"] = {p: c[r["name"]] for p, c in phases.items()}
@@ -860,4 +1228,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--rank"]:
+        sys.exit(rank_main(int(sys.argv[2]), sys.argv[3]))
     sys.exit(main())

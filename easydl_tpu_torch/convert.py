@@ -13,7 +13,11 @@ tree of ``easydl_tpu/models/transformer.py`` as numpy arrays (unbox it with
 
 Torch's ``nn.Linear`` keeps ``weight [out, in]``, so kernels are flattened
 over the head axes and transposed. Both directions only reshape and
-transpose: a round trip is bit-exact. :func:`to_jax_tree` and
+transpose: a round trip is bit-exact. Both also map a block of each
+parameter, as FSDP2 shards it (``core/sharding.py``: whole heads of a q/k/v
+bias, a slice of ``embed`` elsewhere), to the block of the JAX leaf that
+holds it, which is how multi-process checkpoints lay out their chunks
+(``core/jax_state.py``). :func:`to_jax_tree` and
 :func:`from_jax_tree` are the GPT bundle's ``JaxLayout``, which checkpoints
 use to lay out the weights and the Adam moments.
 """
@@ -38,11 +42,13 @@ def to_jax_tree(sd: Mapping[str, torch.Tensor], n_heads: int) -> Dict[str, Any]:
         return torch.stack([sd[f"blocks.{i}.{suffix}"] for i in range(n_layers)])
 
     blocks: Dict[str, Dict[str, torch.Tensor]] = {}
+    head_dim = sd["blocks.0.q.weight"].shape[0] // n_heads
     for name in _PROJ:
         w = stack(name + ".weight")  # [L, H*hd, D]
         blocks[name] = {
             "kernel": w.transpose(1, 2).reshape(n_layers, w.shape[2], n_heads, -1).contiguous(),
-            "bias": stack(name + ".bias").reshape(n_layers, n_heads, -1),
+            # by head_dim, not n_heads: a bias cut at a head boundary maps to its heads
+            "bias": stack(name + ".bias").reshape(n_layers, -1, head_dim),
         }
     w = stack("out.weight")  # [L, D, H*hd]
     blocks["out"] = {

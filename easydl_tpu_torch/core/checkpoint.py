@@ -1,4 +1,5 @@
-"""Async checkpoints in the JAX package's on-disk format, in one process.
+"""Async checkpoints in the JAX package's on-disk format, from one process
+or from every rank of a process group.
 
 Counterpart of ``easydl_tpu/core/checkpoint.py``'s ``CheckpointManager``,
 ``_LeafReader`` and ``restore_with_fallback``. The layout is the same, so a
@@ -14,11 +15,16 @@ names the leaves as the JAX ``TrainState`` does)::
 - **save**: the leaves are copied to host memory before :meth:`save`
   returns (the optimizer updates the live tensors in place in the next
   step); the files are written on a background thread unless
-  ``async_save=False``. Each leaf is one chunk. The chunks go into a tmp dir
-  that is renamed into the step dir, then ``COMMITTED`` is written, then
-  steps beyond ``keep`` are deleted, marker first.
-- **restore**: each leaf is assembled from whichever of its chunks overlap
-  it; a JAX save from a sharded mesh splits a leaf into several chunks.
+  ``async_save=False``. In one process each leaf is one chunk. In several,
+  each rank writes the chunks of its replica-0 shards (:class:`Shards`,
+  named by their bounds) and rank 0 the whole leaves, each rank into its
+  own ``<step>.tmp.<rank>`` dir; after a barrier rank 0 moves them into the
+  step dir, writes the manifest, then ``COMMITTED``, then deletes steps
+  beyond ``keep``, marker first.
+- **restore**: each leaf, or the block of it that a rank's placement
+  needs, is assembled from whichever chunks overlap it, so a step saved on
+  any mesh, by either package, restores onto any other
+  (reshard-on-restore).
 - ``cache_token`` is written so that the JAX package's host-local chunk
   cache finds a well-formed manifest; the port has no chunk cache yet and
   reads storage.
@@ -31,10 +37,12 @@ import re
 import threading
 import time
 import uuid
-from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from easydl_tpu_torch.core.storage import CheckpointStorage, get_storage
 from easydl_tpu_torch.utils.logging import get_logger
@@ -47,9 +55,11 @@ _COMMITTED = "COMMITTED"
 _CORRUPT = "CORRUPT"
 
 Shape = Tuple[int, ...]
+#: ``[(start, stop)]`` per dimension
+Bounds = List[Tuple[int, int]]
 
 
-def _chunk_name(bounds: List[Tuple[int, int]]) -> str:
+def _chunk_name(bounds: Bounds) -> str:
     if not bounds:
         return "scalar.npy"
     return "_".join(f"{a}-{b}" for a, b in bounds) + ".npy"
@@ -113,67 +123,144 @@ class _LeafReader:
         return out
 
 
+@dataclass(frozen=True)
+class Shards:
+    """This process's part of one leaf of a sharded state: the leaf's global
+    shape and dtype, and the chunks this process writes, each as the
+    ``[(start, stop)]`` it covers in every dimension and its data (a torch
+    tensor on any device, or a numpy array). A replica that another process
+    writes has no chunks."""
+
+    shape: Shape
+    dtype: np.dtype
+    chunks: Sequence[Tuple[Bounds, Any]]
+
+
+def _process() -> Tuple[int, int]:
+    """(rank, world size) of the default process group, or (0, 1)."""
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
+
+
+def _from_rank0(value):
+    box = [value]
+    dist.broadcast_object_list(box, src=0)
+    return box[0]
+
+
+def _all_true(flag: bool) -> bool:
+    flags = [None] * dist.get_world_size()
+    dist.all_gather_object(flags, bool(flag))
+    return all(flags)
+
+
 class CheckpointManager:
     """Saves and restores flat ``{key: array}`` states, keeping the last
-    ``keep`` committed steps. ``directory`` is a path or ``file://`` URL."""
+    ``keep`` committed steps. ``directory`` is a path or ``file://`` URL.
+
+    With ``torch.distributed`` initialised, the manager acts for every rank
+    of the default group, and every rank calls :meth:`save`,
+    :meth:`latest_step`, :meth:`finalize` and :meth:`wait` together: each
+    writes its own chunks, rank 0 commits, and all agree on the steps."""
 
     def __init__(self, directory: str, keep: int = 3, async_save: bool = True):
         self.directory = directory
         self.keep = keep
         self.async_save = async_save
         self.storage = get_storage(directory)
+        self.rank, self.world = _process()
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
+        self._pending_commit: Optional[Callable[[], None]] = None
         self.storage.makedirs("")
 
     # ------------------------------------------------------------------ save
     def save(self, step: int, leaves: Mapping[str, Any]) -> None:
-        """Copies ``leaves`` (torch tensors on any device, or numpy arrays)
-        to host memory, then writes them, on a background thread unless
-        ``async_save=False``. A step already committed is skipped."""
+        """Copies ``leaves`` to host memory, then writes them, on a background
+        thread unless ``async_save=False``. A leaf is a whole tensor (torch on
+        any device, or numpy; in several processes rank 0 writes it) or a
+        :class:`Shards`. A step already committed is skipped. With several
+        processes an async save commits in a later :meth:`finalize` or
+        :meth:`wait`, whose barriers run on the caller's thread."""
         self.wait()
-        if step in self.steps():
+        skip = step in self.steps()
+        if self.world > 1:
+            skip = _from_rank0(skip)
+        if skip:
             log.info("step %d already checkpointed; skipping", step)
             return
-        snapshot = [(i, key, _host_copy(leaf)) for i, (key, leaf) in enumerate(leaves.items())]
+        snapshot = []  # (index, key, shape, dtype, [(bounds, host array)])
+        for i, (key, leaf) in enumerate(leaves.items()):
+            if isinstance(leaf, Shards):
+                snapshot.append((i, key, tuple(leaf.shape), np.dtype(leaf.dtype),
+                                 [(list(b), _host_copy(c)) for b, c in leaf.chunks]))
+            else:
+                arr = _host_copy(leaf)
+                snapshot.append((i, key, arr.shape, arr.dtype,
+                                 [([(0, d) for d in arr.shape], arr)] if self.rank == 0 else []))
         t0 = time.perf_counter()
         step_dir = f"step_{step:08d}"
-        tmp_dir = step_dir + ".tmp.0"
+        tmp_dir = f"{step_dir}.tmp.{self.rank}"
         manifest = {
             "step": step,
             "metadata": {},
             "cache_token": f"{step:08d}-{uuid.uuid4().hex[:12]}",
-            "leaves": [{"index": i, "key": key, "shape": list(arr.shape),
-                        "dtype": str(arr.dtype)} for i, key, arr in snapshot],
+            "leaves": [{"index": i, "key": key, "shape": list(shape), "dtype": str(dtype)}
+                       for i, key, shape, dtype, _ in snapshot],
         }
 
-        def write_and_commit() -> None:
+        def write() -> None:  # chunk IO only: no collectives
             storage = self.storage
             storage.delete_tree(tmp_dir)  # debris of a save that died here
             storage.makedirs(tmp_dir)
-            for i, _, arr in snapshot:
-                name = _chunk_name([(0, d) for d in arr.shape])
-                storage.save_array(f"{tmp_dir}/leaf_{i:05d}/{name}", arr)
-            storage.write_bytes(f"{tmp_dir}/manifest.json", json.dumps(manifest).encode())
-            if self._uncommitted_debris(step_dir):
-                log.warning("clearing aborted save at %s", step_dir)
-                storage.delete_tree(step_dir)
-            storage.rename(tmp_dir, step_dir)
-            storage.write_bytes(f"{step_dir}/{_COMMITTED}", str(step).encode())
-            log.info("saved step %d in %.2fs -> %s/%s", step, time.perf_counter() - t0,
-                     self.directory, step_dir)
-            self._gc()
+            for i, _, _, _, chunks in snapshot:
+                for bounds, arr in chunks:
+                    storage.save_array(f"{tmp_dir}/leaf_{i:05d}/{_chunk_name(bounds)}", arr)
+
+        def commit() -> None:  # in several processes: every rank, on its main thread
+            storage = self.storage
+            if self.world > 1:
+                dist.barrier()  # every rank's chunks are written
+            if self.rank == 0:
+                if self._uncommitted_debris(step_dir):
+                    log.warning("clearing aborted save at %s", step_dir)
+                    storage.delete_tree(step_dir)
+                storage.write_bytes(f"{tmp_dir}/manifest.json", json.dumps(manifest).encode())
+                storage.rename(tmp_dir, step_dir)
+                for rank in range(1, self.world):  # move the other ranks' chunks in
+                    src = f"{step_dir}.tmp.{rank}"
+                    for leaf in storage.listdir(src):
+                        storage.makedirs(f"{step_dir}/{leaf}")
+                        for chunk in storage.listdir(f"{src}/{leaf}"):
+                            storage.rename(f"{src}/{leaf}/{chunk}", f"{step_dir}/{leaf}/{chunk}")
+                    storage.delete_tree(src)
+                storage.write_bytes(f"{step_dir}/{_COMMITTED}", str(step).encode())
+                log.info("saved step %d in %.2fs -> %s/%s", step, time.perf_counter() - t0,
+                         self.directory, step_dir)
+                self._gc()
+            if self.world > 1:
+                dist.barrier()  # every rank sees the step committed
 
         if not self.async_save:
-            write_and_commit()
+            try:
+                write()
+            except Exception as e:  # agreed on by every rank, then raised, by wait()
+                self._error = e
+            self._pending_commit = commit
+            self.wait()
             return
 
         def run() -> None:
             try:
-                write_and_commit()
+                write()
+                if self.world == 1:
+                    commit()
             except BaseException as e:  # raised by the next wait() or save()
                 self._error = e
 
+        if self.world > 1:
+            self._pending_commit = commit
         self._thread = threading.Thread(target=run, name=f"ckpt-save-{step}", daemon=True)
         self._thread.start()
 
@@ -181,17 +268,40 @@ class CheckpointManager:
         return (bool(self.storage.listdir(step_dir))
                 and not self.storage.exists(f"{step_dir}/{_COMMITTED}"))
 
+    def finalize(self) -> bool:
+        """Commits a pending save once every rank's chunks are written,
+        without waiting for them; True when nothing is left pending. All
+        ranks call it together (it agrees by a collective)."""
+        if self._pending_commit is None:
+            return True
+        if not self._agree(self._thread is None or not self._thread.is_alive()):
+            return False
+        self.wait()
+        return True
+
     def wait(self) -> None:
-        """Blocks until an in-flight save is committed; raises its error."""
+        """Blocks until an in-flight save is committed; raises its error. In
+        several processes a failure on any rank drops the commit on all."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
-        if self._error is not None:
-            err, self._error = self._error, None
-            raise RuntimeError(f"async checkpoint save failed: {err!r}") from err
+        err, self._error = self._error, None
+        commit, self._pending_commit = self._pending_commit, None
+        if commit is not None and not self._agree(err is None) and err is None:
+            raise RuntimeError("checkpoint save failed on another rank; "
+                               "commit dropped on all ranks")
+        if err is not None:
+            raise RuntimeError(f"checkpoint save failed: {err!r}") from err
+        if commit is not None:
+            commit()
+
+    def _agree(self, flag: bool) -> bool:
+        """``flag`` on every rank (a collective in several processes)."""
+        return _all_true(flag) if self.world > 1 else flag
 
     # ---------------------------------------------------------------- restore
     def steps(self) -> List[int]:
+        """The committed steps, as this process sees the directory."""
         out = []
         for name in self.storage.listdir(""):
             m = _STEP_RE.match(name)
@@ -200,19 +310,25 @@ class CheckpointManager:
         return sorted(out)
 
     def latest_step(self) -> Optional[int]:
+        """The newest committed step; in several processes rank 0's answer,
+        so that every rank restores the same step."""
         steps = self.steps()
-        return steps[-1] if steps else None
+        latest = steps[-1] if steps else None
+        return _from_rank0(latest) if self.world > 1 else latest
 
     def metadata(self, step: int) -> Dict[str, Any]:
         return json.loads(self.storage.read_bytes(f"step_{step:08d}/manifest.json"))
 
-    def restore(self, step: int, template: Mapping[str, Tuple[Shape, np.dtype]]
-                ) -> Dict[str, np.ndarray]:
-        """The leaves named by ``template`` (key -> (shape, dtype)), each
-        assembled whole and cast to the template's dtype. A leaf missing from
-        the step, or saved with another shape, raises."""
+    def restore(self, step: int, template: Mapping[str, Tuple[Shape, np.dtype]],
+                regions: Optional[Mapping[str, Bounds]] = None) -> Dict[str, np.ndarray]:
+        """The leaves named by ``template`` (key -> (global shape, dtype)),
+        each cast to the template's dtype: whole, or the block
+        ``regions[key]`` (``[(start, stop)]`` per dimension) where given, read
+        from the chunks that overlap it, whatever mesh saved them. A leaf
+        missing from the step, or saved with another shape, raises."""
         step_dir = f"step_{step:08d}"
         by_key = {leaf["key"]: leaf for leaf in self.metadata(step)["leaves"]}
+        regions = regions or {}
         out = {}
         for key, (shape, dtype) in template.items():
             if key not in by_key:
@@ -223,7 +339,7 @@ class CheckpointManager:
                 raise ValueError(f"{key}: saved shape {saved} != target {tuple(shape)}")
             reader = _LeafReader(self.storage, f"{step_dir}/leaf_{rec['index']:05d}", saved,
                                  np.dtype(rec["dtype"]))
-            arr = reader.read([(0, d) for d in saved])
+            arr = reader.read(list(regions.get(key, [(0, d) for d in saved])))
             out[key] = arr if arr.dtype == dtype else arr.astype(dtype)
         return out
 
@@ -255,15 +371,26 @@ def restore_with_fallback(manager: CheckpointManager, restore_fn: Callable[[int]
     """Restores the newest committed step, falling back past corrupt ones:
     a step whose ``restore_fn(step)`` raises is quarantined and the next
     older one is tried. Returns ``(state, step)``, or ``(None, -1)`` when no
-    step is left."""
+    step is left. In several processes every rank calls it together: they
+    try the same step, and if it fails on any rank all of them drop it and
+    rank 0 quarantines it."""
     for _ in range(max_attempts):
         step = manager.latest_step()
         if step is None:
             return None, -1
+        state = None
         try:
-            return restore_fn(step), step
+            state = restore_fn(step)
+            ok = True
         except Exception as e:
             log.warning("restore of step %d failed: %r", step, e)
-        manager.quarantine(step)
+            ok = False
+        if manager._agree(ok):
+            return state, step
+        del state  # a survivor's state from a bad step must not leak
+        if manager.rank == 0:
+            manager.quarantine(step)
+        if manager.world > 1:
+            dist.barrier()
     raise RuntimeError(f"no restorable checkpoint under {manager.directory} after "
                        f"{max_attempts} quarantine fallbacks")

@@ -1,6 +1,8 @@
-"""One-device training core of the port.
+"""Training core of the port: one device, or one process per device on a
+``dp`` x ``fsdp`` mesh.
 
-Counterpart of ``easydl_tpu/core/train_loop.py`` on one device:
+Counterpart of ``easydl_tpu/core/train_loop.py``. With no mesh, on one
+device:
 
 - parameters and optimizer state stay f32; before the loss, EVERY floating
   parameter is cast to ``compute_dtype`` (default bf16) with an explicit,
@@ -10,6 +12,28 @@ Counterpart of ``easydl_tpu/core/train_loop.py`` on one device:
 - gradient accumulation averages loss, aux metrics and gradients over
   ``grad_accum`` microbatches (sums, then one scale by 1/accum);
 - ``grad_norm`` is the global L2 norm of the averaged gradients.
+
+With a mesh (``mesh`` or ``mesh_spec``, after
+``core.mesh.init_distributed``), every rank builds the same seeded f32 model,
+and FSDP2 shards each block and the root over the (``dp``, ``fsdp``)
+sub-mesh: HSDP, parameters and Adam moments split over ``fsdp`` on the
+dimension that ``core/sharding.py`` reads from the rules, whole on every
+``dp`` replica. FSDP2's mixed-precision policy gathers the parameters in
+``compute_dtype`` (the cast) and reduces the gradients in f32, summing
+them over the ranks. :meth:`Trainer.train_step` takes this process's rows
+of the global batch (the ranks' rows, concatenated in rank order, make it)
+and computes what the JAX step computes on the global batch:
+
+- microbatch i is the global rows ``[i·m, (i+1)·m)``, ``m =
+  global_batch / grad_accum``: the ranks all-gather the token ids and each
+  takes its share of each microbatch;
+- the loss is the masked mean over the global microbatch: the model's loss
+  sums its numerator and denominator over the ranks
+  (``core.mesh.batch_sum``), so loss and aux metrics are the global ones
+  on every rank;
+- the gradients of all but the last microbatch stay on their rank, summed
+  in f32 (FSDP2 accumulates in its ``reduce_dtype``), and are reduced once;
+  ``grad_norm`` is the norm over every shard.
 
 The state is updated in place (PyTorch's idiom; the JAX step donates and
 replaces it): :meth:`Trainer.train_step` returns the same ``TrainState``.
@@ -27,10 +51,13 @@ from typing import Any, Callable, Dict, Iterable, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 from torch.func import functional_call
 
-from easydl_tpu_torch.core import jax_state
+from easydl_tpu_torch.core import jax_state, sharding
+from easydl_tpu_torch.core.checkpoint import Shards
+from easydl_tpu_torch.core.mesh import AXES, MeshSpec, axis_size, batch_group, build_mesh
 from easydl_tpu_torch.utils.device import require_device
 from easydl_tpu_torch.utils.logging import get_logger
 
@@ -73,17 +100,37 @@ class _LossModule(nn.Module):
         return self.loss_fn(self.model, batch)
 
 
+def fsdp_params(model: nn.Module):
+    """FSDP2's per-parameter records (``FSDPParam``) of every unit
+    :class:`Trainer` sharded. FSDP2's private state: a unit holds one
+    parameter group in torch 2.11 (``_fsdp_param_group``) and a list of
+    them in later versions (``_fsdp_param_groups``)."""
+    for m in model.modules():
+        if hasattr(m, "_get_fsdp_state"):
+            state = m._get_fsdp_state()
+            groups = getattr(state, "_fsdp_param_groups", None) or [state._fsdp_param_group]
+            for group in groups:
+                yield from group.fsdp_params if group is not None else ()
+
+
 class Trainer:
-    """Runs the training step on one device.
+    """Runs the training step on one device, or on this rank's part of a
+    mesh.
 
     Args:
       init_fn: ``(seed, device) -> nn.Module`` with f32 parameters.
       loss_fn: ``(module, batch) -> (loss, aux_metrics)``; the module runs on
         parameters cast to ``config.compute_dtype``.
       optimizer: ``parameters -> torch.optim.Optimizer``.
-      device: where to train; "cuda" unless the caller asks for "cpu".
+      device: where to train; "cuda" unless the caller asks for "cpu". With
+        a mesh, this rank's device (``core.mesh.init_distributed``'s).
       jax_layout: the model's parameters in the JAX package's tree (the
         bundle's ``jax_layout``); checkpoints need it.
+      mesh: a ``DeviceMesh`` of :data:`~easydl_tpu_torch.core.mesh.AXES`
+        (``core.mesh.build_mesh``), or None to build one from
+        ``mesh_spec``; with neither, the one-device path.
+      param_axes: parameter name -> its logical axes (the bundle's
+        ``param_axes``); a mesh needs it.
     """
 
     def __init__(
@@ -94,6 +141,9 @@ class Trainer:
         config: TrainConfig,
         device="cuda",
         jax_layout: Optional[jax_state.JaxLayout] = None,
+        mesh=None,
+        mesh_spec: Optional[MeshSpec] = None,
+        param_axes: Optional[Callable] = None,
     ):
         self.config = config
         self.jax_layout = jax_layout
@@ -101,12 +151,48 @@ class Trainer:
         self.init_fn = init_fn
         self.loss_fn = loss_fn
         self.optimizer = optimizer
+        if mesh is not None or mesh_spec is not None:
+            sharding.check_mesh(mesh_spec if mesh is None else
+                                MeshSpec(**{a: axis_size(mesh, a) for a in AXES}))
+            if param_axes is None:
+                raise ValueError("a mesh needs the model's param_axes (ModelBundle.param_axes)")
+            mesh = mesh if mesh is not None else build_mesh(mesh_spec, self.device)
+        self.mesh = mesh
+        if mesh is not None:
+            self.param_axes = param_axes
+            self.batch_mesh = mesh["dp", "fsdp"]
+            self.ranks = self.batch_mesh.size()
+            self.rank = dist.get_rank()
+            micro = config.global_batch // max(config.grad_accum, 1)
+            if micro % self.ranks:
+                raise ValueError(f"microbatch {micro} (global_batch {config.global_batch} / "
+                                 f"grad_accum {config.grad_accum}) is not divisible by the "
+                                 f"{self.ranks} ranks of the batch axes")
 
     def init_state(self) -> TrainState:
         model = self.init_fn(self.config.seed, self.device)
-        log.info("initialised state on %s (%d params)", self.device,
-                 sum(p.numel() for p in model.parameters()))
+        count = sum(p.numel() for p in model.parameters())
+        if self.mesh is not None:
+            self._shard(model)
+        log.info("initialised state on %s (%d params%s)", self.device, count,
+                 f", mesh {self.batch_mesh}" if self.mesh is not None else "")
         return TrainState(step=0, model=model, optimizer=self.optimizer(model.parameters()))
+
+    def _shard(self, model: nn.Module) -> None:
+        """FSDP2 over the (dp, fsdp) sub-mesh: each block, then the root."""
+        from torch.distributed.fsdp import MixedPrecisionPolicy, fully_shard
+
+        names = {p: n for n, p in model.named_parameters()}
+        kwargs = dict(mesh=self.batch_mesh,
+                      mp_policy=MixedPrecisionPolicy(param_dtype=self.config.compute_dtype,
+                                                     reduce_dtype=torch.float32),
+                      shard_placement_fn=sharding.shard_placement_fn(names, self.param_axes))
+        units = [*getattr(model, "blocks", ()), model]
+        for unit in units:
+            fully_shard(unit, **kwargs)
+        for unit in units:  # sum the ranks' gradients: the loss already divides
+            unit.set_gradient_divide_factor(1.0)
+            unit.set_force_sum_reduction_for_comms(True)
 
     def _layout(self) -> jax_state.JaxLayout:
         if self.jax_layout is None:
@@ -114,11 +200,20 @@ class Trainer:
                                       "(ModelBundle.jax_layout)")
         return self.jax_layout
 
-    def state_leaves(self, state: TrainState) -> Dict[str, torch.Tensor]:
+    def state_leaves(self, state: TrainState) -> Dict[str, Any]:
         """``state`` as the JAX ``TrainState``'s checkpoint leaves (key ->
-        tensor on the state's device); what ``CheckpointManager.save`` takes."""
-        return jax_state.to_leaves(state.step, state.model, state.optimizer,
-                                   self.config.seed, self._layout())
+        tensor on the state's device); what ``CheckpointManager.save`` takes.
+        With a mesh, the sharded leaves are this rank's :class:`Shards`
+        (chunks on replica 0 only)."""
+        leaves = jax_state.to_leaves(state.step, state.model, state.optimizer,
+                                     self.config.seed, self._layout())
+        if self.mesh is None:
+            return leaves
+        shapes = self.leaf_shapes(state)
+        writer = jax_state.is_writer(state.model)
+        regions = jax_state.leaf_regions(state.model, self._layout())
+        return {k: Shards(shapes[k][0], shapes[k][1], [(regions[k], v)] if writer else [])
+                if k in regions else v for k, v in leaves.items()}
 
     def leaf_shapes(self, state: TrainState) -> jax_state.Template:
         """(shape, dtype) of each of :meth:`state_leaves`, allocating none."""
@@ -134,7 +229,9 @@ class Trainer:
             if step is None:
                 raise FileNotFoundError(f"no checkpoints under {checkpoint.directory}")
         state = self.init_state()
-        leaves = checkpoint.restore(step, self.leaf_shapes(state))
+        regions = (jax_state.leaf_regions(state.model, self._layout())
+                   if self.mesh is not None else None)
+        leaves = checkpoint.restore(step, self.leaf_shapes(state), regions)
         state.step = jax_state.load_leaves(leaves, state.model, state.optimizer,
                                            self.config.seed, self._layout())
         return state
@@ -143,34 +240,77 @@ class Trainer:
         return {k: torch.as_tensor(np.asarray(v)).to(self.device, non_blocking=True)
                 for k, v in host_batch.items()}
 
-    def _forward(self, wrapped: _LossModule, batch) -> Tuple[torch.Tensor, Dict[str, Any]]:
-        dtype = self.config.compute_dtype
-        cast = {name: p.to(dtype) if p.is_floating_point() else p
-                for name, p in wrapped.named_parameters()}
-        loss, aux = functional_call(wrapped, cast, (batch,))
+    def _forward(self, model: nn.Module, batch, loss_fn: Callable,
+                 reduce_grads: bool = True) -> Tuple[torch.Tensor, Dict[str, Any]]:
+        """``loss_fn(model, batch)`` on the compute-dtype parameters: cast
+        here on one device, gathered so by FSDP2 on a mesh, where the loss
+        sums over every rank's rows and ``reduce_grads`` says whether the
+        backward reduces the gradients over the ranks."""
+        if self.mesh is None:
+            dtype = self.config.compute_dtype
+            wrapped = _LossModule(model, loss_fn)
+            cast = {name: p.to(dtype) if p.is_floating_point() else p
+                    for name, p in wrapped.named_parameters()}
+            loss, aux = functional_call(wrapped, cast, (batch,))
+        else:
+            model.set_requires_gradient_sync(reduce_grads)
+            # the batch axes are the whole mesh (check_mesh: no other axis > 1)
+            with batch_group(dist.group.WORLD) as opened:
+                loss, aux = loss_fn(model, batch)
+            if not opened.summed:  # the gradients are summed: the loss must divide
+                raise RuntimeError(
+                    "on a mesh the loss must be the mean over every rank's rows: this "
+                    "loss_fn never called core.mesh.batch_sum, so its gradients would come "
+                    f"out {self.ranks} times too large")
         return loss.float(), aux
 
-    def train_step(self, state: TrainState, host_batch) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-        batch = self.to_device(host_batch)
+    def _microbatches(self, batch: Dict[str, torch.Tensor]):
+        """The microbatches of the global batch ``[accum, global/accum]``, as
+        the JAX step splits it; on a mesh, this rank's share of each."""
         accum = max(self.config.grad_accum, 1)
-        micro = self.config.global_batch // accum
-        wrapped = _LossModule(state.model, self.loss_fn)
+        if self.mesh is None:
+            micro = self.config.global_batch // accum
+            return [{k: v[i * micro:(i + 1) * micro] for k, v in batch.items()}
+                    for i in range(accum)]
+        rows = {len(v) for v in batch.values()}
+        if rows != {self.config.global_batch // self.ranks}:
+            raise ValueError(f"rank {self.rank} got {rows} rows; it takes global_batch / "
+                             f"{self.ranks} = {self.config.global_batch // self.ranks}")
+        if accum == 1:  # the rank's rows are its share of the one microbatch
+            return [batch]
+        share = self.config.global_batch // accum // self.ranks
+        whole = {}
+        for k, v in batch.items():
+            parts = [torch.empty_like(v) for _ in range(self.ranks)]
+            dist.all_gather(parts, v.contiguous())
+            whole[k] = torch.cat(parts)
+        first = [(i * self.ranks + self.rank) * share for i in range(accum)]
+        return [{k: v[a:a + share] for k, v in whole.items()} for a in first]
+
+    def train_step(self, state: TrainState, host_batch) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        micro = self._microbatches(self.to_device(host_batch))
         state.optimizer.zero_grad(set_to_none=True)
         loss_sum = torch.zeros((), device=self.device)
         aux_sum: Dict[str, torch.Tensor] = {}
-        for i in range(accum):
-            mb = {k: v[i * micro:(i + 1) * micro] for k, v in batch.items()}
-            loss, aux = self._forward(wrapped, mb)
+        for i, mb in enumerate(micro):
+            loss, aux = self._forward(state.model, mb, self.loss_fn,
+                                      reduce_grads=i == len(micro) - 1)
             loss.backward()  # .grad accumulates the sum over microbatches
             loss_sum += loss.detach()
             for k, v in aux.items():
                 aux_sum[k] = aux_sum.get(k, 0.0) + v.detach()
         grads = [p.grad for p in state.model.parameters() if p.grad is not None]
-        scale = 1.0 / accum
-        if accum > 1:
+        if self.mesh is not None:  # this rank's shards of the reduced gradients
+            grads = [g.to_local() for g in grads]
+        scale = 1.0 / len(micro)
+        if len(micro) > 1:
             torch._foreach_mul_(grads, scale)
         # multi-tensor ops: a few launches for all the gradients together
         grad_norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        if self.mesh is not None:  # the norm over every shard: squares summed over fsdp
+            square = grad_norm.square()
+            dist.all_reduce(square, group=self.batch_mesh.get_group("fsdp"))
+            grad_norm = square.sqrt()
         state.optimizer.step()
         state.step += 1
         metrics = {
@@ -183,12 +323,11 @@ class Trainer:
     def build_eval_step(self, eval_fn: Callable):
         """``(state, host_batch) -> aux`` of ``eval_fn(module, batch) ->
         (loss, aux)``: no gradients, parameters cast to ``compute_dtype`` as
-        in the train step."""
+        in the train step; with a mesh, on this rank's rows, aux over all."""
 
         def eval_step(state: TrainState, host_batch) -> Dict[str, torch.Tensor]:
             with torch.no_grad():
-                _, aux = self._forward(_LossModule(state.model, eval_fn),
-                                       self.to_device(host_batch))
+                _, aux = self._forward(state.model, self.to_device(host_batch), eval_fn)
             return aux
 
         return eval_step

@@ -16,7 +16,9 @@ import torch.nn.functional as F
 from easydl_tpu_torch import convert
 from easydl_tpu_torch.core.data import SyntheticTokens
 from easydl_tpu_torch.core.jax_state import JaxLayout
+from easydl_tpu_torch.core.mesh import batch_sum
 from easydl_tpu_torch.core.mfu import model_flops_per_token
+from easydl_tpu_torch.core.sharding import gpt_param_axes
 from easydl_tpu_torch.models.registry import ModelBundle, register_model
 from easydl_tpu_torch.models.transformer import Transformer, TransformerConfig
 from easydl_tpu_torch.ops.fused_xent import fused_softmax_xent
@@ -34,7 +36,9 @@ SIZES: Dict[str, Tuple[int, int, int]] = {
 
 
 def lm_loss(logits: torch.Tensor, targets: torch.Tensor, ignore_id: int = -1):
-    """Mean next-token cross-entropy over targets != ``ignore_id``, in f32."""
+    """Mean next-token cross-entropy over targets != ``ignore_id``, in f32;
+    over every rank's rows while the trainer holds a batch group
+    (``core.mesh.batch_sum``)."""
     logits = logits.float()
     mask = (targets != ignore_id).float()
     losses = F.cross_entropy(
@@ -42,8 +46,9 @@ def lm_loss(logits: torch.Tensor, targets: torch.Tensor, ignore_id: int = -1):
         targets.clamp_min(0).reshape(-1).long(),
         reduction="none",
     ).view_as(mask)
-    denom = mask.sum().clamp_min(1.0)
-    return (losses * mask).sum() / denom, denom
+    total, count = batch_sum((losses * mask).sum(), mask.sum())
+    denom = count.clamp_min(1.0)
+    return total / denom, denom
 
 
 @register_model("gpt")
@@ -112,6 +117,7 @@ def make_gpt(
         eval_fn=loss_fn,
         jax_layout=JaxLayout(to_jax=functools.partial(convert.to_jax_tree, n_heads=n_heads),
                              from_jax=convert.from_jax_tree),
+        param_axes=gpt_param_axes,
         param_count_hint=cfg.param_count,
         flops_per_sample_hint=model_flops_per_token(
             cfg.param_count, n_layers, d_model, seq_len) * seq_len,

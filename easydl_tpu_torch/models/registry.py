@@ -29,6 +29,9 @@ class ModelBundle:
     #: the parameters in the JAX package's tree, for checkpoints in its
     #: format; None = this model cannot be checkpointed yet
     jax_layout: Optional[JaxLayout] = None
+    #: parameter name -> the logical axes of each of its dimensions
+    #: (``core/sharding.py``); None = this model cannot train on a mesh yet
+    param_axes: Optional[Callable[[str], Any]] = None
     param_count_hint: int = 0
     #: training FLOPs per example (fwd+bwd, PaLM appendix-B accounting) —
     #: the MFU numerator (core/mfu.py); 0 = unknown

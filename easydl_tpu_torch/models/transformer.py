@@ -18,7 +18,9 @@ numerics rather than torch's defaults:
   (:data:`SAVED_PRODUCTS`) and recomputes the rest, the counterpart of
   ``jax.checkpoint_policies.dots_saveable``. The flash forward is not a
   product, so it runs again in the backward, as the JAX package's
-  ``pallas_call`` does;
+  ``pallas_call`` does. A block that FSDP2 shards (``core/train_loop.py``
+  with a mesh) checkpoints inside its own forward, within FSDP2's hooks;
+  any other block is checkpointed by the stack, its parameters passed in;
 - init: normal(0.02) for kernels and the token embedding, residual
   projections (``out``, ``down``) × (2·n_layers)^-0.5, ``pos_emb``
   normal(0.01), zero biases, unit LayerNorm scales.
@@ -38,6 +40,7 @@ from functools import partial
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.fsdp import FSDPModule
 from torch.func import functional_call
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
@@ -58,6 +61,13 @@ SAVED_PRODUCTS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.addmm.defa
 def _save_products(ctx, op, *args, **kwargs) -> CheckpointPolicy:
     return (CheckpointPolicy.MUST_SAVE if op in SAVED_PRODUCTS
             else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat_kwargs(cfg: "TransformerConfig") -> dict:
+    kwargs = {"use_reentrant": False}
+    if cfg.remat_policy == "dots":
+        kwargs["context_fn"] = partial(create_selective_checkpoint_contexts, _save_products)
+    return kwargs
 
 
 def _block_on(block: nn.Module, names, x: torch.Tensor, *params: torch.Tensor) -> torch.Tensor:
@@ -149,6 +159,14 @@ class Block(nn.Module):
         self.down = nn.Linear(cfg.d_ff, d)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.cfg.remat and isinstance(self, FSDPModule):
+            # FSDP2 gathers the block's parameters (in the compute dtype) in
+            # its hooks, before the forward and again before the backward,
+            # so a recompute inside them runs on what the forward ran on
+            return checkpoint(self._forward, x, **_remat_kwargs(self.cfg))
+        return self._forward(x)
+
+    def _forward(self, x: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
         dt = cfg.torch_dtype
         b, s, _ = x.shape
@@ -202,13 +220,10 @@ class Transformer(nn.Module):
         emb = self.tok_emb.weight.to(dt)
         seq = tokens.shape[1]
         x = F.embedding(tokens, emb) + self.pos_emb.to(dt)[None, :seq]
-        remat = {}
-        if cfg.remat and cfg.remat_policy == "dots":
-            remat["context_fn"] = partial(create_selective_checkpoint_contexts, _save_products)
         for blk in self.blocks:
-            if cfg.remat:
+            if cfg.remat and not isinstance(blk, FSDPModule):
                 names, params = zip(*blk.named_parameters())
-                x = checkpoint(_block_on, blk, names, x, *params, use_reentrant=False, **remat)
+                x = checkpoint(_block_on, blk, names, x, *params, **_remat_kwargs(cfg))
             else:
                 x = blk(x)
         x = self.ln_f(x)

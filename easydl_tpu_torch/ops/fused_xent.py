@@ -28,6 +28,8 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from easydl_tpu_torch.core.mesh import batch_sum
+
 
 def _chunk_loss(hidden: torch.Tensor, head: torch.Tensor, targets: torch.Tensor,
                 ignore_id: int) -> torch.Tensor:
@@ -58,7 +60,9 @@ def fused_softmax_xent(
 
     Returns:
       ``(loss, denom)``: the f32 mean over unmasked positions and their f32
-      count (at least 1), as ``models.gpt.lm_loss`` returns them.
+      count (at least 1), as ``models.gpt.lm_loss`` returns them; over every
+      rank's rows while the trainer holds a batch group
+      (``core.mesh.batch_sum``).
     """
     if hidden.dim() != 3:
         raise ValueError(f"hidden must be [B,S,D], got {tuple(hidden.shape)}")
@@ -76,5 +80,6 @@ def fused_softmax_xent(
         h = hidden[:, start:start + chunk_size]
         t = targets[:, start:start + chunk_size]
         total = total + checkpoint(_chunk_loss, h, head, t, ignore_id, use_reentrant=False)
-    denom = (targets != ignore_id).float().sum().clamp_min(1.0)
+    total, count = batch_sum(total, (targets != ignore_id).float().sum())
+    denom = count.clamp_min(1.0)
     return total / denom, denom

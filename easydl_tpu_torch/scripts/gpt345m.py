@@ -34,15 +34,15 @@ def bundle(dtype: str = "bfloat16", attention_impl: str = "auto", **options) -> 
                      attention_impl=attention_impl, **options)
 
 
-def trainer(model: ModelBundle) -> Trainer:
-    """The run's ``Trainer`` on the GPU for ``model`` (from :func:`bundle`)."""
-    return Trainer(
-        init_fn=model.init_fn, loss_fn=model.loss_fn,
-        optimizer=functools.partial(torch.optim.AdamW, lr=2e-4, weight_decay=0.01),
-        config=TrainConfig(global_batch=GLOBAL_BATCH, grad_accum=MICROBATCHES),
-        device="cuda",
-        jax_layout=model.jax_layout,
-    )
+def trainer(model: ModelBundle, device="cuda", **options) -> Trainer:
+    """The run's ``Trainer`` on the GPU for ``model`` (from :func:`bundle`);
+    ``options`` go to ``Trainer`` (``mesh_spec``, ``loss_fn``, ...)."""
+    return Trainer(**{
+        "init_fn": model.init_fn, "loss_fn": model.loss_fn,
+        "optimizer": functools.partial(torch.optim.AdamW, lr=2e-4, weight_decay=0.01),
+        "config": TrainConfig(global_batch=GLOBAL_BATCH, grad_accum=MICROBATCHES),
+        "device": device, "jax_layout": model.jax_layout, "param_axes": model.param_axes,
+        **options})
 
 
 def logits_loss(model: torch.nn.Module, batch: dict):

@@ -6,10 +6,18 @@
   that flag, like its evaluator role, the evaluator pod and
   ``chip_smoke.py``, fails on a box without a CUDA GPU with a message that
   names the missing card;
-- the kernel build reads its sources from the package.
+- the kernel build reads its sources from the package;
+- under ``torch.distributed.run`` the runner trains on every rank (two gloo
+  ranks on the CPU here), rank 0 alone logs, its multi-rank checkpoint
+  resumes and the one-process evaluator restores it; one rank takes the
+  one-device path; ``--dp`` must match the world, and the evaluator refuses
+  to run as several processes;
+- the multi-card script (``scripts/nccl_cards.py``) runs its four ranks on
+  the CPU over gloo and holds them to one process.
 """
 
 import ast
+import json
 import os
 import subprocess
 import sys
@@ -41,6 +49,8 @@ def _port_files():
 def test_port_imports_nothing_of_jax_or_the_jax_package():
     files = _port_files()
     assert len(files) > 10
+    for module in ("mesh", "mesh_shapes", "sharding"):  # the multi-process modules
+        assert PORT / "core" / f"{module}.py" in files
     bad = [(str(f.relative_to(REPO)), m) for f in files for m in _imports(f)
            if m.split(".")[0] in FORBIDDEN]
     assert not bad, bad
@@ -136,3 +146,53 @@ def test_chip_smoke_reads_ptxas_and_names_kernels():
     assert smoke.ptxas_report(log) == {"flash_fwd_sm90_kernel<bf16, 64>": [106, 0, 0],
                                        "flash_bwd_dq_kernel<f32, 32>": [64, 12, 8]}
     assert smoke.kernel_name("_Z3foov") == "_Z3foov"
+
+
+def test_runner_trains_on_two_ranks_and_the_evaluator_restores_them(tmp_path):
+    ckpt = str(tmp_path / "ckpt")
+    common = ["--model", "gpt", "--model-arg", "size=test", "--model-arg", "seq_len=64",
+              "--model-arg", "vocab=256", "--batch", "4", "--device", "cpu"]
+    run = ["-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "2",
+           "-m", "easydl_tpu_torch.models.run", *common, "--ckpt-dir", ckpt, "--ckpt-every", "2"]
+    r = _run([*run, "--steps", "2"])
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert r.stderr.count("step 2 loss") == 1  # rank 0 logs
+    assert "mesh DeviceMesh((dp=2, fsdp=1)" in r.stderr
+    r = _run([*run, "--steps", "4"])
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert "resumed from step 2" in r.stderr and "step 4 loss" in r.stderr
+    assert sorted(os.listdir(ckpt)) == ["step_00000002", "step_00000004"]
+    r = _run(["-m", "easydl_tpu_torch.models.run", *common, "--role", "evaluator",
+              "--ckpt-dir", ckpt, "--eval-polls", "1"])
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert "eval @ step 4" in r.stderr
+
+
+def test_runner_at_one_rank_takes_the_one_device_path():
+    r = _run(["-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "1",
+              "-m", "easydl_tpu_torch.models.run", "--model", "gpt", "--model-arg", "size=test",
+              "--model-arg", "seq_len=64", "--model-arg", "vocab=256", "--batch", "4",
+              "--device", "cpu", "--steps", "1"])
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert "step 1 loss" in r.stderr and "mesh" not in r.stderr  # no FSDP2 at one rank
+
+
+def test_multi_card_script_rehearses_on_four_cpu_ranks():
+    r = _run(["-m", "easydl_tpu_torch.scripts.nccl_cards", "--device", "cpu", "--size", "test"])
+    assert r.returncode == 0, r.stdout[-2000:] + r.stderr[-3000:]
+    out = json.loads(r.stdout.strip().splitlines()[-1])
+    assert out["ok"] and out["backend"] == "gloo" and out["mesh"] == [2, 2]
+    assert out["param_rel"] <= 2e-3 and len(out["losses"]) == 4
+
+
+@pytest.mark.parametrize("args,env", [
+    (["--dp", "2"], {}),
+    (["--role", "evaluator", "--ckpt-dir", "x"], {"WORLD_SIZE": "2"}),
+])
+def test_runner_rejects_a_world_it_cannot_run(args, env, monkeypatch):
+    from easydl_tpu_torch.models import run
+
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    with pytest.raises(SystemExit):
+        run.main(["--model", "gpt", "--device", "cpu", *args])
