@@ -10,9 +10,10 @@ Phases, each of which fails the run (non-zero exit) on any error:
 2. build: compiles the flash-attention kernels from
    ``easydl_tpu_torch/ops/csrc/`` with ``nvcc`` (one process per source, all
    at once) and prints the build time, each kernel's registers and spills
-   and, where the toolkit has ``cuobjdump``, its count of ``HGMMA`` (wgmma)
-   and ``UTMALDG`` (TMA load) instructions; fails if a tensor-core kernel
-   spills or shows none of either;
+   and, where the toolkit has ``cuobjdump``, its count of ``HGMMA`` (wgmma),
+   ``UTMALDG`` (TMA load) and ``HMMA.1688.F32.TF32`` (mma.sync in TF32)
+   instructions; fails if a tensor-core kernel spills, if a bf16 one shows
+   no HGMMA or no UTMALDG, or if an f32 one shows no TF32 HMMA;
 3. kernels: holds ``flash_fwd`` (O and lse), ``flash_bwd_dq`` (dq and
    Δ = rowsum(dO∘O)) and ``flash_bwd_dkv`` (dk and dv) against their plain
    PyTorch versions on the card, at the GPT-2 345M shape ([128, 1024, 64]
@@ -139,15 +140,23 @@ Phases, each of which fails the run (non-zero exit) on any error:
 10. BERT-base masked-LM pretraining (BASELINE config 3), with phase 9's
    objects freed: 12 layers, d_model 768, 12 heads of 64, seq 512, vocab
    30720, the model in f32 as the JAX bundle has it, so that attention runs
-   the exact-f32 kernels of ``flash_attention.cu``, non-causal; TF32 stays
-   off (the bundle's loss refuses it on the card); a-c run in a process of
-   their own (``chip_smoke.py --bert CARD OUT``), whose profiler sees the
-   card:
+   the f32 kernels (the forward of ``flash_attention.cu`` on the CUDA
+   cores, the backward of ``flash_bwd_f32_sm90.cu`` on the tensor cores in
+   3xTF32), non-causal; TF32 stays off for the model's own products (the
+   bundle's loss refuses it on the card); a-c run in a process of their own
+   (``chip_smoke.py --bert CARD OUT``), whose profiler sees the card:
    a. the three f32 kernels against their plain versions and the reference
       attention's autograd at [96, 512, 64] (a microbatch of 8 x 12 heads),
-      within ``TOL`` and ``REF_TOL`` in f32, timed as in phase 3 beside
+      within ``TOL`` and ``REF_TOL`` in f32; dq, dk and dv also within
+      ``F32_GRAD_REL`` of the plain versions in relative L2, where the same
+      kernels fed q, k, v and dO rounded to TF32 (``tf32_round``, a planted
+      fault: what a kernel that dropped the small parts of the split would
+      give) must read above it; dq, Δ, dk and dv of two calls on the same
+      inputs bit-equal; timed as in phase 3 beside
       ``F.scaled_dot_product_attention`` in f32, their bounds reckoned at
-      the card's f32 rate (``F32_PEAK_FLOPS``);
+      the 3xTF32 rate (``TF32X3_PEAK_FLOPS``) and at the CUDA cores' f32
+      rate (``F32_PEAK_FLOPS``). The small f32 cases of phase 3 hold the
+      same bound, fault and determinism;
    b. through the registry's bundle and ``Trainer.train_step``: bf16
       compute cast, phase 4's optimizer, global batch 32 in 4 microbatches
       (16,384 tokens a step), 1 warm-up and 3 timed steps; finite losses,
@@ -333,16 +342,31 @@ FILE_STRAGGLE_S = 10.0
 FILE_DEADLINE_S = 240  # each wait of the phase
 # Phase 10, BERT-base masked-LM pretraining (BASELINE config 3): 12 layers,
 # d_model 768, 12 heads of 64, seq 512, vocab 30720, the model in f32 as the
-# JAX bundle has it, so that attention runs the exact-f32 kernels,
-# non-causal, at [microbatch 8 x 12 heads, 512, 64]; phase 4's optimizer,
-# global batch 32 in 4 microbatches (16,384 tokens a step).
+# JAX bundle has it, so that attention runs the f32 kernels, non-causal, at
+# [microbatch 8 x 12 heads, 512, 64]; phase 4's optimizer, global batch 32
+# in 4 microbatches (16,384 tokens a step).
 BERT_LAYERS, BERT_HEADS = 12, 12
 BERT_GLOBAL_BATCH, BERT_MICROBATCHES = 32, 4
 BERT_BH = BERT_GLOBAL_BATCH // BERT_MICROBATCHES * BERT_HEADS
-# the FP32 rate of an H100 SXM outside the tensor cores (NVIDIA's data
-# sheet): exact f32 products run on the CUDA cores, since the tensor cores
-# take no exact f32 operand (TF32 rounds)
+# The FP32 rate of an H100 SXM outside the tensor cores (NVIDIA's data
+# sheet), where the f32 forward kernel runs its products. The tensor cores
+# take TF32 (10 explicit mantissa bits) at 495 TFLOP/s dense; split into a
+# big and a small TF32 part, an f32 product costs three TF32 products at
+# f32-level accuracy (3xTF32, the f32 backward kernels), so f32-accurate
+# work can run at 495/3 TFLOP/s: the f32 rows' bound, with the CUDA cores'
+# beside it.
 F32_PEAK_FLOPS = 67e12
+TF32X3_PEAK_FLOPS = 495e12 / 3
+# The f32 backward kernels against their plain versions: dq, dk and dv in
+# relative L2. F32_GRAD_REL sits between the sound reading and a planted
+# fault's: the same kernels fed q, k, v and dO rounded to TF32 (what a
+# kernel that dropped the small parts would give). TOL's f32 gradient bound
+# (5e-4 + 5e-4·|x|) passes that fault: its largest err/bound read 0.008-0.01
+# on the sound kernels. On an H100 SXM (700 W) the sound kernels read
+# 4.4-4.8e-6 at BERT-base's [96, 512, 64] (8.5e-7 to 2.2e-6 on phase 3's
+# small cases), the fault 3.6-5.2e-4 everywhere; the bound sits 8x above
+# the one and 9x below the other.
+F32_GRAD_REL = 4e-5
 # 10c: the trained BERT-base through the f32 kernels against the reference
 # attention (f32 einsums, TF32 off), one microbatch: the logits and every
 # parameter's gradient (key biases left out, see GRAD_REL) in relative L2,
@@ -351,6 +375,9 @@ F32_PEAK_FLOPS = 67e12
 # sound run read 4.02e-7 (logits) and 2.01e-4 (largest gradient, a key
 # projection's: near uniform attention, see GRAD_REL), the fault 1.64e-5
 # and 4.66e-3; each bound sits 5-7x above the one and 5x below the other.
+# With the 3xTF32 backward kernels the same card read 4.03e-7 and 3.81e-4
+# (the fault 1.64e-5 and 4.95e-3): the gradient bound now sits 2.6x above
+# the sound reading and 5x below the fault's.
 BERT_MODEL_REL = {"logits": 3e-6, "grads": 1e-3}
 # 10d: the elastic worker on a BERT-base job over token shards, SIGKILLed
 # once its metrics show step BERT_KILL_AT and the periodic save of step 2 is
@@ -370,12 +397,19 @@ SOURCE = {  # by kernel: fa.launches' names
     "flash_fwd": CSRC + "flash_fwd_sm90.cu",
     "flash_bwd_dq": CSRC + "flash_bwd_dq_sm90.cu",
     "flash_bwd_dkv": CSRC + "flash_bwd_dkv_sm90.cu",
-    **{name: CSRC + "flash_attention.cu" for name in fa.KERNELS[torch.float32]},
+    "flash_fwd_f32": CSRC + "flash_attention.cu",
+    "flash_bwd_dq_f32": CSRC + "flash_bwd_f32_sm90.cu",
+    "flash_bwd_dkv_f32": CSRC + "flash_bwd_f32_sm90.cu",
 }
-# the tensor-core kernels, which must show wgmma (HGMMA) and TMA loads
-# (UTMALDG) in their SASS and no ptxas spills
-SM90_KERNELS = ("flash_fwd_sm90_kernel", "flash_bwd_dkv_sm90_kernel",
-                "flash_bwd_dq_sm90_kernel")
+# the tensor-core kernels, in the order of easydl_flash_sm90_ctas_per_sm's
+# index, with the SASS instructions each must show: wgmma (HGMMA) and TMA
+# loads (UTMALDG) in bf16, TF32 mma.sync (HMMA.1688.F32.TF32) in f32; none
+# may spill
+BF16_SASS, F32_SASS = ("HGMMA", "UTMALDG"), ("HMMA.1688.F32.TF32",)
+TC_KERNELS = {"flash_fwd_sm90_kernel": BF16_SASS, "flash_bwd_dkv_sm90_kernel": BF16_SASS,
+              "flash_bwd_dq_sm90_kernel": BF16_SASS, "flash_bwd_dkv_f32_sm90_kernel": F32_SASS,
+              "flash_bwd_dq_f32_sm90_kernel": F32_SASS}
+SASS_OPS = BF16_SASS + F32_SASS
 REPLACES = {
     "flash_fwd": "easydl_tpu/ops/flash_attention.py:59",
     "flash_bwd_dq": "easydl_tpu/ops/flash_attention.py:157",
@@ -455,16 +489,17 @@ def ptxas_report(nvcc_log: str):
 
 
 def kernel_name(mangled: str) -> str:
-    m = re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkv)(?:_sm90)?_kernel)I(f|13__nv_bfloat16)?Li(\d+)E",
-                  mangled)
+    m = re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkv)(_f32)?(?:_sm90)?_kernel)I(f|13__nv_bfloat16)?"
+                  r"Li(\d+)E", mangled)
     if not m:
         return mangled
-    dtype = {"f": "f32", "13__nv_bfloat16": "bf16", None: "bf16"}[m.group(2)]
-    return f"{m.group(1)}<{dtype}, {m.group(3)}>"
+    dtype = "f32" if m.group(2) else {"f": "f32", "13__nv_bfloat16": "bf16",
+                                      None: "bf16"}[m.group(3)]
+    return f"{m.group(1)}<{dtype}, {m.group(4)}>"
 
 
 def sass_counts(lib_path) -> dict:
-    """{kernel: (HGMMA, UTMALDG)} instruction counts in the library's SASS,
+    """{kernel: {op: count}} of each of ``SASS_OPS`` in the library's SASS,
     or {} where the toolkit has no cuobjdump."""
     tool = shutil.which("cuobjdump") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
@@ -477,11 +512,19 @@ def sass_counts(lib_path) -> dict:
         m = re.search(r"Function : (\w+)", line)
         if m:
             name = kernel_name(m.group(1))
-            counts[name] = [0, 0]
+            counts[name] = dict.fromkeys(SASS_OPS, 0)
         elif name:
-            counts[name][0] += "HGMMA" in line
-            counts[name][1] += "UTMALDG" in line
+            for op in SASS_OPS:
+                counts[name][op] += op in line
     return counts
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to TF32 (10 explicit mantissa bits) as ``cvt.rna.tf32.f32``
+    does: to nearest, ties away from zero; inf and nan pass through."""
+    bits = x.float().contiguous().view(torch.int32)
+    rounded = ((bits + 0x1000) & -0x2000).view(torch.float32)
+    return torch.where(torch.isfinite(x), rounded, x.float())
 
 
 def visible_pairs(s_q: int, s_k: int, causal: bool) -> int:
@@ -513,13 +556,17 @@ def bound(name: str, bh: int, s_q: int, s_k: int, d: int, causal: bool, itemsize
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def check_kernels(bh, s_q, s_k, d, dtype, causal, seed, timed, peak_flops=None, heads=16):
+def check_kernels(bh, s_q, s_k, d, dtype, causal, seed, timed, peak_flops=None, heads=16,
+                  fp32_flops=None):
     """Each kernel against its plain version on the same card inputs and
-    against autograd of the reference attention on their f32 upcast; every
-    reading is printed before a failure is raised. ``timed``: also times
-    each kernel, its plain version and ``F.scaled_dot_product_attention``
-    over ``bh // heads`` sequences of ``heads`` heads, and returns the
-    kernels' rows of the ``kernels`` line, named by kernel."""
+    against autograd of the reference attention on their f32 upcast; in
+    f32 also the backward kernels' relative L2 (``F32_GRAD_REL``, with the
+    TF32-rounded fault above it) and two calls bit-equal; every reading is
+    printed before a failure is raised. ``timed``: also times each kernel,
+    its plain version and ``F.scaled_dot_product_attention`` over
+    ``bh // heads`` sequences of ``heads`` heads, and returns the kernels'
+    rows of the ``kernels`` line, named by kernel; with ``fp32_flops`` each
+    row also carries its bound at that rate (``bound_ms_fp32``)."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     q = torch.randn(bh, s_q, d, generator=g, device="cuda").to(dtype)
     k = torch.randn(bh, s_k, d, generator=g, device="cuda").to(dtype)
@@ -581,6 +628,8 @@ def check_kernels(bh, s_q, s_k, d, dtype, causal, seed, timed, peak_flops=None, 
                                  ("dv", dv, grads[2]))}
     log(f"  ... vs autograd of the reference attention (f32, within {REF_TOL[dtype]}): "
         + ", ".join(f"{n} max|err| {e:.3g}" for n, (e, _) in vs_ref.items()))
+    if dtype == torch.float32:
+        failures += f32_backward_checks(dq_args, args, (dq, delta, dk, dv), (dq_ref, dk_ref, dv_ref))
     if failures:
         raise AssertionError("; ".join(failures))
     log("  ... ok")
@@ -623,15 +672,53 @@ def check_kernels(bh, s_q, s_k, d, dtype, causal, seed, timed, peak_flops=None, 
             "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": (lib_fwd if name == "flash_fwd" else lib_bwd)[0],
         })
+        if fp32_flops:
+            rows[-1]["bound_ms_fp32"] = bound(name, bh, s_q, s_k, d, causal, q.element_size(),
+                                              fp32_flops)[0]
     log("host ms per call while the windows were issued: "
         + ", ".join(f"{n} {t:.4f}" for n, t in host.items()))
     return rows
 
 
+def f32_backward_checks(dq_args, dkv_args, got, want) -> list:
+    """The f32 backward kernels' outputs ``got`` (dq, Δ, dk, dv) from
+    ``dq_args`` and ``dkv_args``: dq, dk and dv within ``F32_GRAD_REL`` of
+    the plain versions' ``want`` in relative L2, and the same kernels on q,
+    k, v and dO rounded to TF32 above it; a second call bit-equal to the
+    first. Prints the readings; returns the failures."""
+    q, k, v, o, do, lse, causal, scale = dq_args
+    rq, rk, rv, rdo = (tf32_round(x) for x in (q, k, v, do))
+    fault_dq, fault_delta = fa.flash_bwd_dq(rq, rk, rv, o, rdo, lse, causal, scale)
+    fault = (fault_dq, *fa.flash_bwd_dkv(rq, rk, rv, rdo, lse, fault_delta, causal, scale))
+    again = (*fa.flash_bwd_dq(*dq_args), *fa.flash_bwd_dkv(*dkv_args))
+    torch.cuda.synchronize()
+
+    def rel(a, b):
+        return ((a.double() - b.double()).norm() / b.double().norm()).item()
+
+    names = ("dq", "dk", "dv")
+    sound = dict(zip(names, (rel(a, b) for a, b in zip(got[:1] + got[2:], want))))
+    planted = dict(zip(names, (rel(a, b) for a, b in zip(fault, want))))
+    equal = [torch.equal(a, b) for a, b in zip(got, again)]
+    log(f"  ... f32 backward, relative L2 vs plain (bound {F32_GRAD_REL}): "
+        + ", ".join(f"{n} {sound[n]:.3g}" for n in names)
+        + "; with q, k, v, dO rounded to TF32 (planted fault): "
+        + ", ".join(f"{n} {planted[n]:.3g}" for n in names)
+        + f"; a second call bit-equal (dq, Δ, dk, dv): {equal}")
+    failures = [f"f32 backward {n}: relative L2 {sound[n]:.3g} > {F32_GRAD_REL}"
+                for n in names if not sound[n] <= F32_GRAD_REL]
+    failures += [f"f32 backward {n}: the TF32-rounded fault reads {planted[n]:.3g}, not above "
+                 f"{F32_GRAD_REL}" for n in names if not planted[n] > F32_GRAD_REL]
+    if not all(equal):
+        failures.append(f"f32 backward: a second call differs (dq, Δ, dk, dv equal: {equal})")
+    return failures
+
+
 def build_kernels() -> None:
     """Builds the kernels' library; prints each kernel's registers and
-    spills (ptxas) and, where cuobjdump exists, its HGMMA and UTMALDG count;
-    fails if a tensor-core kernel spills or shows no wgmma or TMA load."""
+    spills (ptxas) and, where cuobjdump exists, its count of each of
+    ``SASS_OPS``; fails if a tensor-core kernel spills, if a bf16 one shows
+    no wgmma or TMA load, or if an f32 one shows no TF32 mma.sync."""
     t0 = time.perf_counter()
     path, nvcc_log = build.build(fa.KERNEL_SOURCES)
     log(f"build: {path.name} from {', '.join(fa.KERNEL_SOURCES)} in "
@@ -640,23 +727,25 @@ def build_kernels() -> None:
     for name, (regs, st, ld) in sorted(ptxas.items()):
         counts = sass.get(name)
         log(f"  {name}: {regs} registers, spill stores {st} B, loads {ld} B"
-            + (f"; SASS: {counts[0]} HGMMA, {counts[1]} UTMALDG" if counts else ""))
+            + ("; SASS: " + ", ".join(f"{c} {op}" for op, c in counts.items())
+               if counts else ""))
     lib = fa._lib()
     log("  CTAs per SM: " + ", ".join(
-        f"{kernel}<bf16, {d}> {lib.easydl_flash_sm90_ctas_per_sm(i, d)}"
-        for i, kernel in enumerate(SM90_KERNELS) for d in fa.HEAD_DIMS))
+        f"{kernel}<{'f32' if ops == F32_SASS else 'bf16'}, {d}> "
+        f"{lib.easydl_flash_sm90_ctas_per_sm(i, d)}"
+        for i, (kernel, ops) in enumerate(TC_KERNELS.items()) for d in fa.HEAD_DIMS))
     if not nvcc_log:
         log("  (the library was built before: no ptxas report)")
     if not sass:
         log("  (no cuobjdump in this toolkit: SASS not counted)")
-    for kernel in SM90_KERNELS:
+    for kernel, ops in TC_KERNELS.items():
         mine = [n for n in ptxas if n.startswith(kernel + "<")]
         if nvcc_log and (not mine or any(ptxas[n][1] or ptxas[n][2] for n in mine)):
             raise AssertionError(f"{kernel}: missing from ptxas's report or spills: "
                                  f"{ {n: ptxas[n] for n in mine} }")
         in_sass = [n for n in sass if n.startswith(kernel + "<")]
-        if sass and not (in_sass and all(sass[n][0] and sass[n][1] for n in in_sass)):
-            raise AssertionError(f"{kernel}: no HGMMA or no UTMALDG in its SASS")
+        if sass and not (in_sass and all(sass[n][op] for n in in_sass for op in ops)):
+            raise AssertionError(f"{kernel}: not every one of {ops} in its SASS")
 
 
 def grad_check(model, ref, batch) -> None:
@@ -1768,11 +1857,14 @@ def bert_train(card: str, out: str) -> int:
     fa._lib()
     with Phase("10a (f32 kernels at BERT-base's shape)"):
         rows = check_kernels(BERT_BH, 512, 512, 64, torch.float32, False, seed=6, timed=True,
-                             peak_flops=F32_PEAK_FLOPS, heads=BERT_HEADS)
+                             peak_flops=TF32X3_PEAK_FLOPS, heads=BERT_HEADS,
+                             fp32_flops=F32_PEAK_FLOPS)
         for r in rows:
             log(f"  {r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, bound "
-                f"{r['bound_ms']:.4f} by {r['bound_by']}, share {r['bound_ms'] / r['ms']:.3f}, "
-                f"sdpa f32 {r['library_ms']:.4f}) on {card}")
+                f"{r['bound_ms']:.4f} by {r['bound_by']} at 3xTF32, share "
+                f"{r['bound_ms'] / r['ms']:.3f}; {r['bound_ms_fp32']:.4f} at the CUDA cores' "
+                f"f32 rate, share {r['bound_ms_fp32'] / r['ms']:.3f}; sdpa f32 "
+                f"{r['library_ms']:.4f}) on {card}")
     with Phase("10b-c (BERT-base training, model check)"):
         bundle, trainer = bert_trainer()
         state = trainer.init_state()

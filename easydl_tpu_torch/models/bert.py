@@ -6,9 +6,10 @@ Counterpart of ``easydl_tpu/models/bert.py``: the same sizes, defaults and
 loss. The stack is the shared ``Transformer``, bidirectional
 (``causal=False``) with the tied head, in f32: the JAX bundle sets no model
 dtype, so every product runs in f32 even when the trainer casts the
-parameters to bf16, and on the card attention takes the exact-f32 flash
-kernels. TF32 would round those f32 products, so on a CUDA tensor the loss
-refuses to run while ``torch.backends.cuda.matmul.allow_tf32`` is set.
+parameters to bf16, and on the card attention takes the f32 flash kernels
+(the backward's products in 3xTF32, at f32-level accuracy). TF32 would
+round the model's f32 products, so on a CUDA tensor the loss refuses to run
+while ``torch.backends.cuda.matmul.allow_tf32`` is set.
 
 The mask is drawn inside the loss from the key the trainer passes
 (:func:`mlm_mask`): ``jax.random.bernoulli(rng, mask_prob, tokens.shape)``

@@ -1,8 +1,8 @@
 // Flash attention dk/dv for Hopper tensor cores, bf16 (head_dim 32, 64).
 //
 // Replaces _bwd_dkv_kernel of easydl_tpu/ops/flash_attention.py (the second
-// pallas_call in _bwd) on the bf16 path; the f32 path keeps the exact-f32
-// kernel of flash_attention.cu. Same interface and results: dk and dv from
+// pallas_call in _bwd) on the bf16 path; the f32 path has the 3xTF32
+// kernel of flash_bwd_f32_sm90.cu. Same interface and results: dk and dv from
 // q, k, v, dO, the forward's natural-log lse and Δ = rowsum(dO∘O); rows with
 // lse = +FLT_MAX (they saw no key) contribute exactly nothing; the causal
 // mask is bottom-right aligned; any s_q and s_k run here.

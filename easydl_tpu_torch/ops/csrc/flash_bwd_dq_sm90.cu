@@ -3,7 +3,7 @@
 //
 // Replaces _bwd_dq_kernel of easydl_tpu/ops/flash_attention.py (the first
 // pallas_call in _bwd) and the einsum for Δ in front of it, on the bf16
-// path; the f32 path keeps the exact-f32 kernel of flash_attention.cu. Same
+// path; the f32 path has the 3xTF32 kernel of flash_bwd_f32_sm90.cu. Same
 // interface and results: dq from q, k, v, dO and the forward's natural-log
 // lse, and Δ from dO and O, written out for the dk/dv kernel; rows with
 // lse = +FLT_MAX (they saw no key) get dq = 0 exactly; the causal mask is

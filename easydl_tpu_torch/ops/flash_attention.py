@@ -12,12 +12,15 @@ its three Pallas kernels:
 - ``flash_bwd_dkv``: per K-tile, loops the q-tiles that can see it and
   accumulates dk and dv.
 
-In bf16, the training path, all three are tensor-core kernels (``wgmma``
+In bf16, GPT's training path, all three are tensor-core kernels (``wgmma``
 fed by TMA: ``ops/csrc/flash_fwd_sm90.cu``, ``ops/csrc/flash_bwd_dq_sm90.cu``,
 ``ops/csrc/flash_bwd_dkv_sm90.cu``) that round P and dS to bf16 before their
-second product, as the TPU kernel's default-precision dot does; in f32 they
-are the exact-f32 kernels of ``ops/csrc/flash_attention.cu``. All are built
-into one library and reached through its C entry points.
+second product, as the TPU kernel's default-precision dot does. In f32,
+BERT's path, the two backward kernels are tensor-core kernels too, every
+product in 3xTF32 (each f32 operand split into two TF32 parts, three
+``mma.sync`` products, f32-level accuracy: ``ops/csrc/flash_bwd_f32_sm90.cu``),
+and the forward is the f32 CUDA-core kernel of ``ops/csrc/flash_attention.cu``.
+All are built into one library and reached through its C entry points.
 
 The rowwise ``delta = Σ dO∘O``, an einsum in front of the JAX package's
 kernels, is computed inside the dq kernel, which already holds dO for its
@@ -27,7 +30,7 @@ Each wrapper takes the kernel for a CUDA tensor and the plain version for a
 CPU tensor, and only the tensor's device decides: on a CUDA tensor it
 launches the kernel or raises. Each kernel launch adds one to its count in
 :data:`launches`: the bf16 tensor-core kernel's under the wrapper's name
-(``flash_fwd``), the exact-f32 kernel's with ``_f32`` (``flash_fwd_f32``);
+(``flash_fwd``), the f32 kernel's with ``_f32`` (``flash_fwd_f32``);
 the plain versions count nothing.
 
 Public shapes: [batch, seq, heads, head_dim]; the kernels run on a
@@ -46,7 +49,7 @@ from easydl_tpu_torch.ops import build
 from easydl_tpu_torch.ops.attention import NEG_INF, reference_attention
 
 KERNEL_SOURCES = ("flash_attention.cu", "flash_fwd_sm90.cu", "flash_bwd_dq_sm90.cu",
-                  "flash_bwd_dkv_sm90.cu")
+                  "flash_bwd_dkv_sm90.cu", "flash_bwd_f32_sm90.cu")
 HEAD_DIMS = (32, 64)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_GRID_Y = 65535
@@ -188,7 +191,7 @@ def _check(q, k, v, like_q=(), rows=()) -> None:
         if not t.is_contiguous():
             raise ValueError("flash kernels take contiguous tensors")
         if t.data_ptr() % 16:
-            raise ValueError("flash kernels take 16-byte aligned tensors (TMA)")
+            raise ValueError("flash kernels take 16-byte aligned tensors (TMA, cp.async)")
 
 
 def _launch(name: str, fn, q, *args) -> None:

@@ -296,3 +296,81 @@ def test_bounds_reproduce_the_recorded_main_shape_bounds():
     for name, (ms, by) in want.items():
         got_ms, got_by = smoke.bound(name, 128, 1024, 1024, 64, True, 2, 989e12)
         assert (round(got_ms, 4), got_by) == (ms, by), name
+
+
+# ---------------------------------------------------------------------------
+# the f32 backward kernels' 3xTF32 products
+# ---------------------------------------------------------------------------
+
+def _as_f32(bits: int) -> torch.Tensor:
+    return torch.tensor([bits], dtype=torch.int64).to(torch.int32).view(torch.float32)
+
+
+@pytest.mark.parametrize("bits,want", [
+    (0x3F800000, 0x3F800000),  # 1.0: already TF32
+    (0x3F800FFF, 0x3F800000),  # below half a TF32 ulp: down
+    (0x3F801001, 0x3F802000),  # above it: up
+    (0x3F801000, 0x3F802000),  # a tie on an even TF32 mantissa: away from zero (not to even)
+    (0xBF801000, 0xBF802000),  # the same tie, negative: away from zero
+    (0x3F805000, 0x3F806000),  # a tie on an even mantissa above: away (to even gives 0x3F804000)
+    (0x3F803000, 0x3F804000),  # a tie on an odd mantissa: away
+    (0x3FFFF000, 0x40000000),  # the carry runs into the exponent: 2.0
+    (0x00001000, 0x00002000),  # a subnormal tie: away
+    (0x7F800000, 0x7F800000),  # +inf passes through
+    (0xFF800000, 0xFF800000),  # -inf passes through
+    (0x7FC00123, 0x7FC00123),  # nan passes through, payload and all
+])
+def test_tf32_round_is_cvt_rna(bits, want):
+    """``chip_smoke.tf32_round`` (the planted fault of the f32 backward
+    check) rounds as ``cvt.rna.tf32.f32``: to the nearest of the values with
+    10 explicit mantissa bits, ties away from zero; inf and nan pass
+    through."""
+    got = _chip_smoke().tf32_round(_as_f32(bits)).view(torch.int32).item() & 0xFFFFFFFF
+    assert got == want, f"{bits:#010x} -> {got:#010x}, want {want:#010x}"
+
+
+def _three_tf32_product(a: np.ndarray, b: np.ndarray, tf32_round) -> np.ndarray:
+    """a·b as the f32 backward kernels form it: each operand split into
+    big = TF32 round-to-nearest and small = x − big (exact in f32), whose
+    low 13 bits the tensor core ignores; small·big + big·small + big·big,
+    each product exact (TF32 times TF32 fits f32) and summed in f32."""
+    def split(x):
+        big = tf32_round(torch.from_numpy(x)).numpy()
+        small = (x - big).view(np.int32) & np.int32(-0x2000)
+        return big, small.view(np.float32)
+
+    (a_big, a_small), (b_big, b_small) = split(a), split(b)
+    return a_small @ b_big + a_big @ b_small + a_big @ b_big
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_three_tf32_products_keep_f32_accuracy(seed):
+    """On seeded [64, 64] f32 matrices the 3xTF32 product lies within 1e-6
+    of the f64 product in relative L2 (f32's own product reads ~1.5e-7),
+    and one TF32 product of the rounded operands, the planted fault of
+    ``chip_smoke.F32_GRAD_REL``, at least 10x further (it reads ~2.9e-4)."""
+    tf32_round = _chip_smoke().tf32_round
+    rng = np.random.default_rng(seed)
+    a, b = (rng.standard_normal((64, 64), dtype=np.float32) for _ in range(2))
+    exact = a.astype(np.float64) @ b.astype(np.float64)
+
+    def rel(x):
+        return float(np.linalg.norm(x - exact) / np.linalg.norm(exact))
+
+    three = rel(_three_tf32_product(a, b, tf32_round))
+    one = rel(tf32_round(torch.from_numpy(a)).numpy() @ tf32_round(torch.from_numpy(b)).numpy())
+    assert three <= 1e-6, three
+    assert one >= 10 * three, (one, three)
+
+
+@pytest.mark.parametrize("name,fp32_ms,tf32x3_ms", [("flash_fwd", 0.0962, 0.0390),
+                                                    ("flash_bwd_dq", 0.1443, 0.0586),
+                                                    ("flash_bwd_dkv", 0.1923, 0.0781)])
+def test_f32_bounds_at_bert_base_shape(name, fp32_ms, tf32x3_ms):
+    """``chip_smoke.bound`` at BERT-base's [96, 512, 512, 64] f32
+    non-causal, at the CUDA cores' 67 TFLOP/s and at 3xTF32's 495/3: the
+    bounds PERF.md records, all by operations."""
+    smoke = _chip_smoke()
+    for rate, ms in ((smoke.F32_PEAK_FLOPS, fp32_ms), (smoke.TF32X3_PEAK_FLOPS, tf32x3_ms)):
+        got_ms, got_by = smoke.bound(name, 96, 512, 512, 64, False, 4, rate)
+        assert (round(got_ms, 4), got_by) == (ms, "operations"), (name, rate)
