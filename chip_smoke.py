@@ -140,19 +140,20 @@ Phases, each of which fails the run (non-zero exit) on any error:
 10. BERT-base masked-LM pretraining (BASELINE config 3), with phase 9's
    objects freed: 12 layers, d_model 768, 12 heads of 64, seq 512, vocab
    30720, the model in f32 as the JAX bundle has it, so that attention runs
-   the f32 kernels (the forward of ``flash_attention.cu`` on the CUDA
-   cores, the backward of ``flash_bwd_f32_sm90.cu`` on the tensor cores in
-   3xTF32), non-causal; TF32 stays off for the model's own products (the
+   the f32 kernels (``flash_fwd_f32_sm90.cu`` and ``flash_bwd_f32_sm90.cu``,
+   on the tensor cores in 3xTF32), non-causal; TF32 stays off for the
+   model's own products (the
    bundle's loss refuses it on the card); a-c run in a process of their own
    (``chip_smoke.py --bert CARD OUT``), whose profiler sees the card:
    a. the three f32 kernels against their plain versions and the reference
       attention's autograd at [96, 512, 64] (a microbatch of 8 x 12 heads),
-      within ``TOL`` and ``REF_TOL`` in f32; dq, dk and dv also within
-      ``F32_GRAD_REL`` of the plain versions in relative L2, where the same
-      kernels fed q, k, v and dO rounded to TF32 (``tf32_round``, a planted
-      fault: what a kernel that dropped the small parts of the split would
-      give) must read above it; dq, Δ, dk and dv of two calls on the same
-      inputs bit-equal; timed as in phase 3 beside
+      within ``TOL`` and ``REF_TOL`` in f32; O also within ``F32_FWD_REL``
+      and dq, dk and dv within ``F32_GRAD_REL`` of the plain versions in
+      relative L2, where the same kernels fed q, k, v (and dO) rounded to
+      TF32 (``tf32_round``, a planted fault: what a kernel that dropped the
+      small parts of the split would give) must read above it; O, lse, dq,
+      Δ, dk and dv of two calls on the same inputs bit-equal; timed as in
+      phase 3 beside
       ``F.scaled_dot_product_attention`` in f32, their bounds reckoned at
       the 3xTF32 rate (``TF32X3_PEAK_FLOPS``) and at the CUDA cores' f32
       rate (``F32_PEAK_FLOPS``). The small f32 cases of phase 3 hold the
@@ -349,12 +350,11 @@ BERT_LAYERS, BERT_HEADS = 12, 12
 BERT_GLOBAL_BATCH, BERT_MICROBATCHES = 32, 4
 BERT_BH = BERT_GLOBAL_BATCH // BERT_MICROBATCHES * BERT_HEADS
 # The FP32 rate of an H100 SXM outside the tensor cores (NVIDIA's data
-# sheet), where the f32 forward kernel runs its products. The tensor cores
-# take TF32 (10 explicit mantissa bits) at 495 TFLOP/s dense; split into a
-# big and a small TF32 part, an f32 product costs three TF32 products at
-# f32-level accuracy (3xTF32, the f32 backward kernels), so f32-accurate
-# work can run at 495/3 TFLOP/s: the f32 rows' bound, with the CUDA cores'
-# beside it.
+# sheet). The tensor cores take TF32 (10 explicit mantissa bits) at 495
+# TFLOP/s dense; split into a big and a small TF32 part, an f32 product
+# costs three TF32 products at f32-level accuracy (3xTF32, the f32
+# kernels), so f32-accurate work can run at 495/3 TFLOP/s: the f32 rows'
+# bound, with the CUDA cores' beside it.
 F32_PEAK_FLOPS = 67e12
 TF32X3_PEAK_FLOPS = 495e12 / 3
 # The f32 backward kernels against their plain versions: dq, dk and dv in
@@ -367,6 +367,16 @@ TF32X3_PEAK_FLOPS = 495e12 / 3
 # small cases), the fault 3.6-5.2e-4 everywhere; the bound sits 8x above
 # the one and 9x below the other.
 F32_GRAD_REL = 4e-5
+# The f32 forward kernel against its plain version: O in relative L2, with
+# the bound between the sound reading and the same planted fault's (q, k
+# and v rounded to TF32). On an H100 SXM (700 W) the sound kernel read
+# 5.62e-7 at BERT-base's [96, 512, 64] (1.9e-7 and 3.93e-7 on phase 3's
+# small cases), the fault 2.95-3.74e-4. The same kernel with each product
+# summed in one tensor-core accumulator (which truncates every step) read
+# 4.03e-6 there (3.68e-7 and 1.4e-6), and failed 10c's gradient bound. The
+# bound sits 3.6x above the sound reading at BERT-base's shape, 2x below
+# that one-accumulator kernel's and 150x below the fault's.
+F32_FWD_REL = 2e-6
 # 10c: the trained BERT-base through the f32 kernels against the reference
 # attention (f32 einsums, TF32 off), one microbatch: the logits and every
 # parameter's gradient (key biases left out, see GRAD_REL) in relative L2,
@@ -397,7 +407,7 @@ SOURCE = {  # by kernel: fa.launches' names
     "flash_fwd": CSRC + "flash_fwd_sm90.cu",
     "flash_bwd_dq": CSRC + "flash_bwd_dq_sm90.cu",
     "flash_bwd_dkv": CSRC + "flash_bwd_dkv_sm90.cu",
-    "flash_fwd_f32": CSRC + "flash_attention.cu",
+    "flash_fwd_f32": CSRC + "flash_fwd_f32_sm90.cu",
     "flash_bwd_dq_f32": CSRC + "flash_bwd_f32_sm90.cu",
     "flash_bwd_dkv_f32": CSRC + "flash_bwd_f32_sm90.cu",
 }
@@ -408,7 +418,7 @@ SOURCE = {  # by kernel: fa.launches' names
 BF16_SASS, F32_SASS = ("HGMMA", "UTMALDG"), ("HMMA.1688.F32.TF32",)
 TC_KERNELS = {"flash_fwd_sm90_kernel": BF16_SASS, "flash_bwd_dkv_sm90_kernel": BF16_SASS,
               "flash_bwd_dq_sm90_kernel": BF16_SASS, "flash_bwd_dkv_f32_sm90_kernel": F32_SASS,
-              "flash_bwd_dq_f32_sm90_kernel": F32_SASS}
+              "flash_bwd_dq_f32_sm90_kernel": F32_SASS, "flash_fwd_f32_sm90_kernel": F32_SASS}
 SASS_OPS = BF16_SASS + F32_SASS
 REPLACES = {
     "flash_fwd": "easydl_tpu/ops/flash_attention.py:59",
@@ -489,13 +499,10 @@ def ptxas_report(nvcc_log: str):
 
 
 def kernel_name(mangled: str) -> str:
-    m = re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkv)(_f32)?(?:_sm90)?_kernel)I(f|13__nv_bfloat16)?"
-                  r"Li(\d+)E", mangled)
+    m = re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkv)(_f32)?_sm90_kernel)ILi(\d+)E", mangled)
     if not m:
         return mangled
-    dtype = "f32" if m.group(2) else {"f": "f32", "13__nv_bfloat16": "bf16",
-                                      None: "bf16"}[m.group(3)]
-    return f"{m.group(1)}<{dtype}, {m.group(4)}>"
+    return f"{m.group(1)}<{'f32' if m.group(2) else 'bf16'}, {m.group(3)}>"
 
 
 def sass_counts(lib_path) -> dict:
@@ -560,8 +567,9 @@ def check_kernels(bh, s_q, s_k, d, dtype, causal, seed, timed, peak_flops=None, 
                   fp32_flops=None):
     """Each kernel against its plain version on the same card inputs and
     against autograd of the reference attention on their f32 upcast; in
-    f32 also the backward kernels' relative L2 (``F32_GRAD_REL``, with the
-    TF32-rounded fault above it) and two calls bit-equal; every reading is
+    f32 also the kernels' relative L2 (``F32_FWD_REL``, ``F32_GRAD_REL``,
+    with the TF32-rounded fault above each) and two calls bit-equal; every
+    reading is
     printed before a failure is raised. ``timed``: also times each kernel,
     its plain version and ``F.scaled_dot_product_attention`` over
     ``bh // heads`` sequences of ``heads`` heads, and returns the kernels'
@@ -629,6 +637,7 @@ def check_kernels(bh, s_q, s_k, d, dtype, causal, seed, timed, peak_flops=None, 
     log(f"  ... vs autograd of the reference attention (f32, within {REF_TOL[dtype]}): "
         + ", ".join(f"{n} max|err| {e:.3g}" for n, (e, _) in vs_ref.items()))
     if dtype == torch.float32:
+        failures += f32_forward_check((q, k, v, causal, scale), (o, lse), o_ref)
         failures += f32_backward_checks(dq_args, args, (dq, delta, dk, dv), (dq_ref, dk_ref, dv_ref))
     if failures:
         raise AssertionError("; ".join(failures))
@@ -680,6 +689,37 @@ def check_kernels(bh, s_q, s_k, d, dtype, causal, seed, timed, peak_flops=None, 
     return rows
 
 
+def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    """|a − b| / |b| in L2, in f64."""
+    return ((a.double() - b.double()).norm() / b.double().norm()).item()
+
+
+def f32_forward_check(args, got, want) -> list:
+    """The f32 forward kernel's outputs ``got`` (O, lse) from ``args`` (q, k,
+    v, causal, scale): O within ``F32_FWD_REL`` of the plain version's
+    ``want`` in relative L2, and the same kernel on q, k and v rounded to
+    TF32 above it; a second call bit-equal to the first. (``check_kernels``
+    holds O and lse to ``TOL``.) Prints the readings; returns the
+    failures."""
+    q, k, v, causal, scale = args
+    fault, _ = fa.flash_fwd(*(tf32_round(x) for x in (q, k, v)), causal, scale)
+    again = fa.flash_fwd(*args)
+    torch.cuda.synchronize()
+    sound, planted = rel_err(got[0], want), rel_err(fault, want)
+    equal = [torch.equal(a, b) for a, b in zip(got, again)]
+    log(f"  ... f32 forward, O's relative L2 vs plain (bound {F32_FWD_REL}): {sound:.3g}; with "
+        f"q, k, v rounded to TF32 (planted fault): {planted:.3g}; a second call bit-equal "
+        f"(O, lse): {equal}")
+    failures = [] if sound <= F32_FWD_REL else [
+        f"f32 forward O: relative L2 {sound:.3g} > {F32_FWD_REL}"]
+    if not planted > F32_FWD_REL:
+        failures.append(f"f32 forward O: the TF32-rounded fault reads {planted:.3g}, not above "
+                        f"{F32_FWD_REL}")
+    if not all(equal):
+        failures.append(f"f32 forward: a second call differs (O, lse equal: {equal})")
+    return failures
+
+
 def f32_backward_checks(dq_args, dkv_args, got, want) -> list:
     """The f32 backward kernels' outputs ``got`` (dq, Δ, dk, dv) from
     ``dq_args`` and ``dkv_args``: dq, dk and dv within ``F32_GRAD_REL`` of
@@ -692,13 +732,9 @@ def f32_backward_checks(dq_args, dkv_args, got, want) -> list:
     fault = (fault_dq, *fa.flash_bwd_dkv(rq, rk, rv, rdo, lse, fault_delta, causal, scale))
     again = (*fa.flash_bwd_dq(*dq_args), *fa.flash_bwd_dkv(*dkv_args))
     torch.cuda.synchronize()
-
-    def rel(a, b):
-        return ((a.double() - b.double()).norm() / b.double().norm()).item()
-
     names = ("dq", "dk", "dv")
-    sound = dict(zip(names, (rel(a, b) for a, b in zip(got[:1] + got[2:], want))))
-    planted = dict(zip(names, (rel(a, b) for a, b in zip(fault, want))))
+    sound = dict(zip(names, (rel_err(a, b) for a, b in zip(got[:1] + got[2:], want))))
+    planted = dict(zip(names, (rel_err(a, b) for a, b in zip(fault, want))))
     equal = [torch.equal(a, b) for a, b in zip(got, again)]
     log(f"  ... f32 backward, relative L2 vs plain (bound {F32_GRAD_REL}): "
         + ", ".join(f"{n} {sound[n]:.3g}" for n in names)

@@ -1,8 +1,8 @@
 // Flash attention forward for Hopper tensor cores, bf16 (head_dim 32, 64).
 //
 // Replaces _fwd_kernel of easydl_tpu/ops/flash_attention.py (its pallas_call
-// in _fwd) on the bf16 path; the f32 path keeps the exact-f32 kernel of
-// flash_attention.cu. Same interface and results: O (bf16) and the
+// in _fwd) on the bf16 path; the f32 path has the 3xTF32 kernel of
+// flash_fwd_f32_sm90.cu. Same interface and results: O (bf16) and the
 // natural-log row logsumexp lse (f32); a row that sees no key writes O = 0
 // and lse = +FLT_MAX; the causal mask is bottom-right aligned; any s_q and
 // s_k run here, the tails masked in-kernel.

@@ -16,11 +16,12 @@ In bf16, GPT's training path, all three are tensor-core kernels (``wgmma``
 fed by TMA: ``ops/csrc/flash_fwd_sm90.cu``, ``ops/csrc/flash_bwd_dq_sm90.cu``,
 ``ops/csrc/flash_bwd_dkv_sm90.cu``) that round P and dS to bf16 before their
 second product, as the TPU kernel's default-precision dot does. In f32,
-BERT's path, the two backward kernels are tensor-core kernels too, every
-product in 3xTF32 (each f32 operand split into two TF32 parts, three
-``mma.sync`` products, f32-level accuracy: ``ops/csrc/flash_bwd_f32_sm90.cu``),
-and the forward is the f32 CUDA-core kernel of ``ops/csrc/flash_attention.cu``.
-All are built into one library and reached through its C entry points.
+BERT's path, all three are tensor-core kernels too, every product in 3xTF32
+(each f32 operand split into two TF32 parts, three ``mma.sync`` products,
+f32-level accuracy: ``ops/csrc/flash_fwd_f32_sm90.cu``,
+``ops/csrc/flash_bwd_f32_sm90.cu``, their shared parts in
+``ops/csrc/tf32x3.cuh``). All are built into one library and reached through
+the C entry points of ``ops/csrc/flash_attention.cu``.
 
 The rowwise ``delta = Σ dO∘O``, an einsum in front of the JAX package's
 kernels, is computed inside the dq kernel, which already holds dO for its
@@ -49,7 +50,7 @@ from easydl_tpu_torch.ops import build
 from easydl_tpu_torch.ops.attention import NEG_INF, reference_attention
 
 KERNEL_SOURCES = ("flash_attention.cu", "flash_fwd_sm90.cu", "flash_bwd_dq_sm90.cu",
-                  "flash_bwd_dkv_sm90.cu", "flash_bwd_f32_sm90.cu")
+                  "flash_bwd_dkv_sm90.cu", "flash_fwd_f32_sm90.cu", "flash_bwd_f32_sm90.cu")
 HEAD_DIMS = (32, 64)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_GRID_Y = 65535

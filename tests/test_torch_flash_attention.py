@@ -374,3 +374,126 @@ def test_f32_bounds_at_bert_base_shape(name, fp32_ms, tf32x3_ms):
     for rate, ms in ((smoke.F32_PEAK_FLOPS, fp32_ms), (smoke.TF32X3_PEAK_FLOPS, tf32x3_ms)):
         got_ms, got_by = smoke.bound(name, 96, 512, 512, 64, False, 4, rate)
         assert (round(got_ms, 4), got_by) == (ms, "operations"), (name, rate)
+
+
+def _forward(q, k, v, product):
+    """O as the f32 forward kernel forms it, over key tiles of 64: S =
+    Q·Kᵀ and O += P·V by ``product(c, a, b)`` (c + a·b), the online softmax
+    in f32 in the log2 domain (running max, P = exp2(S·scale·log2e − max),
+    the sum and O rescaled by exp2(old max − new max)), O = acc / l."""
+    scale, log2e = np.float32(q.shape[1] ** -0.5), np.float32(np.log2(np.e))
+    m = np.full((q.shape[0], 1), -np.inf, np.float32)
+    l = np.zeros_like(m)
+    acc = np.zeros((q.shape[0], v.shape[1]), np.float32)
+    for k0 in range(0, k.shape[0], 64):
+        kt, vt = k[k0:k0 + 64], v[k0:k0 + 64]
+        s = product(np.zeros((q.shape[0], len(kt)), np.float32), q, np.ascontiguousarray(kt.T))
+        s = s * scale * log2e
+        mx = np.maximum(m, s.max(1, keepdims=True))
+        p, corr = np.exp2(s - mx).astype(np.float32), np.exp2(m - mx).astype(np.float32)
+        l = l * corr + p.sum(1, keepdims=True)
+        acc = product(acc * corr, p, vt)
+        m = mx
+    return acc / l
+
+
+def _softmax_v(q, k, v):
+    """softmax(q·kᵀ·scale)·v in f64."""
+    s = (q.astype(np.float64) @ k.astype(np.float64).T) * q.shape[1] ** -0.5
+    p = np.exp(s - s.max(1, keepdims=True))
+    return (p / p.sum(1, keepdims=True)) @ v.astype(np.float64)
+
+
+def _rel(x, exact):
+    return float(np.linalg.norm(x - exact) / np.linalg.norm(exact))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_three_tf32_online_softmax_keeps_f32_accuracy(seed):
+    """The f32 forward kernel's arithmetic, each product's sum rounded to
+    nearest in f32, on seeded [64 rows, 192 keys, 64] f32 inputs in three
+    key tiles of 64: O within 1e-6 of the f64 softmax(q·kᵀ·scale)·v in
+    relative L2, and the same arithmetic on q, k and v rounded to TF32, the
+    planted fault of ``chip_smoke.F32_FWD_REL``, at least 10x further."""
+    tf32_round = _chip_smoke().tf32_round
+    rng = np.random.default_rng(seed)
+    q, k, v = (rng.standard_normal((n, 64), dtype=np.float32) for n in (64, 192, 192))
+    exact = _softmax_v(q, k, v)
+
+    def product(c, a, b):
+        return c + _three_tf32_product(a, b, tf32_round)
+
+    def rounded(x):
+        return tf32_round(torch.from_numpy(x)).numpy()
+
+    sound = _rel(_forward(q, k, v, product), exact)
+    fault = _rel(_forward(rounded(q), rounded(k), rounded(v), product), exact)
+    assert sound <= 1e-6, sound
+    assert fault >= 10 * sound, (fault, sound)
+
+
+def _truncated(x: np.ndarray) -> np.ndarray:
+    """f64 values to f32, truncated toward zero."""
+    f = x.astype(np.float32)
+    return np.where(np.abs(f.astype(np.float64)) > np.abs(x), np.nextafter(f, np.float32(0)), f)
+
+
+def _tensor_core_three_tf32(c, a, b, tf32_round, step):
+    """c + a·b in 3xTF32 over k8 steps, each ``mma.sync`` modelled as the
+    tensor core's: its exact products added to the accumulator and the sum
+    truncated toward zero to f32. ``step``: each step's three products
+    summed from 0 and added to c in f32, rounded to nearest (the f32 forward
+    kernel's order); else all summed in c itself."""
+    def split(x):
+        big = tf32_round(torch.from_numpy(np.ascontiguousarray(x))).numpy()
+        small = (x - big).view(np.int32) & np.int32(-0x2000)
+        return big.astype(np.float64), small.view(np.float32).astype(np.float64)
+
+    c = c.astype(np.float32)
+    for k0 in range(0, a.shape[1], 8):
+        (a_big, a_small), (b_big, b_small) = split(a[:, k0:k0 + 8]), split(b[k0:k0 + 8])
+        d = np.zeros(c.shape, np.float32) if step else c
+        for x, y in ((a_small, b_big), (a_big, b_small), (a_big, b_big)):
+            d = _truncated(d.astype(np.float64) + x @ y)
+        c = (c + d).astype(np.float32) if step else d
+    return c
+
+
+def test_per_step_sums_keep_the_forward_accurate_on_truncating_tensor_cores():
+    """The f32 forward kernel's arithmetic on seeded [64 rows, 512 keys, 64]
+    f32 inputs in key tiles of 64, its products modelled as the tensor core
+    forms them (each ``mma.sync`` truncates its sum toward zero). Each k8
+    step summed apart and added in f32, as the kernel does, keeps O within
+    5e-7 of the f64 softmax·V in relative L2; the same products summed in
+    one running accumulator drift at least 4x further (the card read 4.0e-6
+    for that order at BERT-base's shape)."""
+    tf32_round = _chip_smoke().tf32_round
+    rng = np.random.default_rng(0)
+    q, k, v = (rng.standard_normal((n, 64), dtype=np.float32) for n in (64, 512, 512))
+    exact = _softmax_v(q, k, v)
+
+    def forward(step):
+        return _forward(q, k, v, lambda c, a, b: _tensor_core_three_tf32(c, a, b, tf32_round,
+                                                                          step))
+
+    per_step, running = _rel(forward(True), exact), _rel(forward(False), exact)
+    assert per_step <= 5e-7, per_step
+    assert running >= 4 * per_step, (running, per_step)
+
+
+def test_every_f32_kernel_is_built_and_held_to_tf32_sass():
+    """Each f32 kernel that ``flash_attention`` counts has its source in
+    ``chip_smoke.SOURCE`` (a file of ``KERNEL_SOURCES`` that defines the
+    kernel) and an entry in ``chip_smoke.TC_KERNELS`` that demands TF32
+    ``mma.sync`` in its SASS, so that phase 2 fails its build if it spills
+    or runs on the CUDA cores."""
+    from easydl_tpu_torch.ops import build
+
+    smoke = _chip_smoke()
+    for name in tfa.KERNELS[torch.float32]:
+        kernel = name + "_sm90_kernel"
+        source = smoke.SOURCE[name]
+        assert source.startswith(smoke.CSRC), (name, source)
+        assert source[len(smoke.CSRC):] in tfa.KERNEL_SOURCES, (name, source)
+        assert kernel in (build.CSRC / source[len(smoke.CSRC):]).read_text(), (name, source)
+        assert smoke.TC_KERNELS[kernel] == smoke.F32_SASS, kernel

@@ -167,7 +167,8 @@ def test_chip_smoke_reads_ptxas_and_names_kernels():
            "flash_fwd_sm90_kernelILi64EEEv14CUtensorMap_stS1_S1_P13__nv_bfloat16Pfiiif")
     dq = ("_ZN46_GLOBAL__N__5a1b2c3d_21_flash_bwd_f32_sm90_cu_8e2f7a1c28"
           "flash_bwd_dq_f32_sm90_kernelILi32EEEvPKfS2_S2_S2_S2_S2_PfS3_iiif")
-    fwd32 = "_ZN46_GLOBAL__N__c6954c91_1a_flash_attention_cu_16flash_fwd_kernelIfLi32EEEvPKT_"
+    fwd32 = ("_ZN46_GLOBAL__N__c6954c91_21_flash_fwd_f32_sm90_cu_3f0e9b1a25"
+             "flash_fwd_f32_sm90_kernelILi32EEEvPKfS2_S2_PfS3_iiif")
     log = "\n".join([
         f"ptxas info    : Compiling entry function '{fwd}' for 'sm_90a'",
         f"ptxas info    : Function properties for {fwd}",
@@ -184,7 +185,7 @@ def test_chip_smoke_reads_ptxas_and_names_kernels():
     ])
     assert smoke.ptxas_report(log) == {"flash_fwd_sm90_kernel<bf16, 64>": [106, 0, 0],
                                        "flash_bwd_dq_f32_sm90_kernel<f32, 32>": [64, 12, 8],
-                                       "flash_fwd_kernel<f32, 32>": [72, 0, 0]}
+                                       "flash_fwd_f32_sm90_kernel<f32, 32>": [72, 0, 0]}
     assert smoke.kernel_name("_Z3foov") == "_Z3foov"
 
 
