@@ -94,6 +94,19 @@ Phases, each of which fails the run (non-zero exit) on any error:
       commits) restored into one process: every parameter and Adam moment
       bit-equal (sha256) to the ranks' state; prints save and restore
       seconds;
+   d. tensor parallelism: four ranks as four processes on ``cuda:0``
+      (``chip_smoke.py --tp-rank R DIR``) over gloo, ``DIST_STEPS`` steps
+      at fsdp 2 x tp 2 and at dp 2 x tp 2 (each rank its batch
+      coordinate's rows, a tp group the same ones): losses within
+      ``DIST_LOSS_ABS`` of phase 4's first ones, the parameters within
+      ``DIST_PARAM_REL`` of one process's after the same steps, and a
+      planted fault (the column-parallel inputs' gradient left un-reduced
+      over tp) above it; every rank launches each bf16 kernel once a layer
+      and microbatch, on its local heads only ([4·8, 1024, 64]); step
+      seconds and each rank's peak memory; the fsdp 2 x tp 2 ranks save
+      and take one more step, the save restores bit-equal (sha256) in one
+      process and that process's next step is the ranks' (loss within
+      ``DIST_LOSS_ABS``, parameters within ``DIST_PARAM_REL``);
 8. the elastic worker (``elastic/worker.py``) under an agent that this
    script plays, with phase 7's objects freed: ``job.json`` is phase 4's
    set-up (``WORKER_JOB``, Adam(2e-4) as the JAX worker's), world 1 on
@@ -183,7 +196,7 @@ Phases, each of which fails the run (non-zero exit) on any error:
       generation 2's launches. Prints the recovery, seconds from the kill
       to each timeline phase of generation 2, and the steps replayed;
 11. summary: a ``kernels`` JSON line (with each phase's launches, 7b's
-   summed over its ranks and runs, 8's and 9's over their generations; the
+   and 7d's summed over their ranks and runs, 8's and 9's over their generations; the
    f32 kernels' rows from phase 10, their launches 10b's), the card line,
    then the result line.
 
@@ -197,6 +210,7 @@ from __future__ import annotations
 import functools
 import gc
 import hashlib
+import itertools
 import json
 import math
 import os
@@ -315,6 +329,10 @@ DIST_STEPS = 2
 DIST_PARAM_REL = 2e-3
 DIST_DEADLINE_S = 600  # 7b's two ranks, from their start to their exit
 DIST_MASK_KEEP = 64
+# 7d runs four ranks on cuda:0 over gloo, at fsdp 2 x tp 2 and dp 2 x tp 2,
+# with the bounds of 7b; its planted fault (the column-parallel inputs'
+# gradient left un-reduced over tp) must read above DIST_PARAM_REL.
+TP_WORLD = 4
 # Phase 8, the elastic worker under an emulated agent: phase 4's set-up as
 # the job, with the worker's Adam(2e-4); its first losses are held to the
 # in-process runs' by DIST_LOSS_ABS (expected equal: the same weights,
@@ -1284,31 +1302,7 @@ def two_ranks(phase4: dict) -> dict:
         with Phase("7b (two ranks over gloo)"):
             with open(os.path.join(work, "spec.json"), "w") as f:
                 json.dump({"runs": runs}, f)
-            logs = [open(os.path.join(work, f"rank{r}.log"), "w") for r in range(2)]
-            procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--rank",
-                                       str(r), work], stdout=logs[r], stderr=subprocess.STDOUT)
-                     for r in range(2)]
-            deadline = time.monotonic() + DIST_DEADLINE_S
-            try:
-                while any(p.poll() is None for p in procs) and time.monotonic() < deadline:
-                    if any(p.poll() not in (None, 0) for p in procs):
-                        break
-                    time.sleep(0.5)
-            finally:
-                for p in procs:
-                    if p.poll() is None:
-                        p.kill()
-                    p.wait()
-                for f in logs:
-                    f.close()
-            rcs = [p.returncode for p in procs]
-            if rcs != [0, 0]:
-                for r in range(2):
-                    with open(os.path.join(work, f"rank{r}.log")) as f:
-                        print(f"--- 7b rank {r} (rc {rcs[r]}):\n{f.read()[-4000:]}",
-                              file=sys.stderr)
-                raise AssertionError(f"7b ranks exited {rcs} (killed at the {DIST_DEADLINE_S}s "
-                                     "deadline if negative)")
+            start_ranks("--rank", 2, work, "7b")
             with open(os.path.join(work, "result.json")) as f:
                 res = json.load(f)
             per_rank = N_LAYERS * MICROBATCHES * DIST_STEPS
@@ -1355,6 +1349,234 @@ def two_ranks(phase4: dict) -> dict:
             if differ or set(got) != set(saved["hashes"]):
                 raise AssertionError("7c: the restored state is not the saved one")
             del restored, restorer
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return total
+
+
+def column_input_unreduced(x, group):
+    """7d's planted fault, in ``models.transformer``'s place of
+    ``copy_to_tp``: the input of every column-parallel product passed on
+    without the all-reduce of its gradient over tp."""
+    return x
+
+
+def tp_rank_main(rank: int, work: str) -> int:
+    """One of 7d's four ranks (``chip_smoke.py --tp-rank R WORKDIR``): joins
+    a gloo group of four on cuda:0, runs the runs of ``WORKDIR/spec.json``
+    and rank 0 writes their readings to ``WORKDIR/result.json``; after the
+    saving run's checkpoint it takes one more step and rank 0 writes the
+    parameters to ``WORKDIR/next.pt``. The kernels' library was built by
+    the parent: this process only loads it."""
+    import faulthandler
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    from easydl_tpu_torch.core.mesh import MeshSpec, init_distributed
+    from easydl_tpu_torch.models import transformer
+
+    faulthandler.enable()
+    with open(os.path.join(work, "spec.json")) as f:
+        runs = json.load(f)["runs"]
+    world = TP_WORLD
+    init_distributed("cuda:0", backend="gloo", rank=rank, world_size=world,
+                     store=dist.FileStore(os.path.join(work, "store"), world),
+                     timeout=timedelta(seconds=DIST_DEADLINE_S))
+    fa._lib()
+    shapes = set()  # (kernel wrapper, q's shape, dtype) of every launch
+    real_launch = fa._launch
+
+    def launch(name, fn, q, *args):
+        shapes.add((name, tuple(q.shape), str(q.dtype)))
+        return real_launch(name, fn, q, *args)
+
+    fa._launch = launch
+    batches = list(itertools.islice(gpt345m.bundle().make_data(gpt345m.GLOBAL_BATCH, seed=0),
+                                    DIST_STEPS + 1))
+    ref = None
+    if rank == 0:  # one process's parameters after the same steps on the same batches
+        trainer = gpt345m.trainer(gpt345m.bundle(), device="cuda:0")
+        state = trainer.init_state()
+        for batch in batches[:DIST_STEPS]:
+            state, _ = trainer.train_step(state, batch)
+        ref = {n: p.detach() for n, p in state.model.named_parameters()}
+        del state, trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+    dist.barrier()
+    out = {}
+    real_copy = transformer.copy_to_tp
+    for run in runs:
+        if run["fault"]:
+            transformer.copy_to_tp = column_input_unreduced
+        trainer = gpt345m.trainer(gpt345m.bundle(), device="cuda:0",
+                                  mesh_spec=MeshSpec(**run["mesh"]))
+        state = trainer.init_state()
+        share = gpt345m.GLOBAL_BATCH // trainer.ranks
+        rows = slice(trainer.rank * share, (trainer.rank + 1) * share)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launches()
+        shapes.clear()
+        losses, step_s = [], []
+        for batch in batches[:DIST_STEPS]:
+            t0 = time.perf_counter()
+            state, metrics = trainer.train_step(state, {k: v[rows] for k, v in batch.items()})
+            losses.append(float(metrics["loss"]))
+            step_s.append(time.perf_counter() - t0)
+        transformer.copy_to_tp = real_copy
+        res = {"losses": losses, "step_s": step_s, "rank": trainer.rank}
+        for key, mine in (("launches", dict(fa.launches)), ("shapes", sorted(shapes)),
+                          ("peak_gib", torch.cuda.max_memory_allocated() / 2**30)):
+            res[key] = [None] * world
+            dist.all_gather_object(res[key], mine)
+        diff = norm = 0.0
+        for name, p in state.model.named_parameters():
+            full = whole(p)
+            if rank == 0:
+                diff += (full - ref[name]).square().sum().item()
+                norm += ref[name].square().sum().item()
+        res["rel"] = math.sqrt(diff / norm) if rank == 0 else None
+        if run["save"]:
+            mgr = CheckpointManager(run["save"])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mgr.save(state.step, trainer.state_leaves(state))
+            mgr.wait()
+            res["save_s"] = time.perf_counter() - t0
+            res["hashes"] = state_hashes(state)
+            state, metrics = trainer.train_step(
+                state, {k: v[rows] for k, v in batches[DIST_STEPS].items()})
+            res["next_loss"] = float(metrics["loss"])
+            params = {n: whole(p).cpu() for n, p in state.model.named_parameters()}
+            if rank == 0:
+                torch.save(params, os.path.join(work, "next.pt"))
+            res["next_launches"] = [None] * world
+            dist.all_gather_object(res["next_launches"], dict(fa.launches))
+        out[run["name"]] = res
+        del state, trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+    if rank == 0:
+        with open(os.path.join(work, "result.json"), "w") as f:
+            json.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def start_ranks(flag: str, world: int, work: str, label: str) -> None:
+    """Runs ``chip_smoke.py FLAG R WORK`` for R < ``world`` to their end (at
+    most ``DIST_DEADLINE_S``); on a failure prints each rank's log and
+    raises."""
+    logs = [open(os.path.join(work, f"rank{r}.log"), "w") for r in range(world)]
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), flag, str(r), work],
+                              stdout=logs[r], stderr=subprocess.STDOUT) for r in range(world)]
+    deadline = time.monotonic() + DIST_DEADLINE_S
+    try:
+        while any(p.poll() is None for p in procs) and time.monotonic() < deadline:
+            if any(p.poll() not in (None, 0) for p in procs):
+                break
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for f in logs:
+            f.close()
+    rcs = [p.returncode for p in procs]
+    if rcs != [0] * world:
+        for r in range(world):
+            with open(os.path.join(work, f"rank{r}.log")) as f:
+                print(f"--- {label} rank {r} (rc {rcs[r]}):\n{f.read()[-4000:]}", file=sys.stderr)
+        raise AssertionError(f"{label} ranks exited {rcs} (killed at the {DIST_DEADLINE_S}s "
+                             "deadline if negative)")
+
+
+def tp_ranks(card: str, phase4: dict) -> dict:
+    """7d (see the module docstring). Returns its launches."""
+    work = tempfile.mkdtemp(prefix="chip_smoke_tp_")
+    ckpt = os.path.join(work, "ckpt")
+    runs = [{"name": "fsdp 2 x tp 2", "mesh": {"fsdp": 2, "tp": 2}, "fault": False,
+             "save": ckpt},
+            {"name": "dp 2 x tp 2", "mesh": {"dp": 2, "tp": 2}, "fault": False, "save": ""},
+            {"name": "fsdp 2 x tp 2, planted fault", "mesh": {"fsdp": 2, "tp": 2},
+             "fault": True, "save": ""}]
+    micro_rows = gpt345m.GLOBAL_BATCH // MICROBATCHES // 2  # two batch ranks in each mesh
+    local_heads = [micro_rows * 16 // 2, gpt345m.SEQ, 64]  # [B·H/tp, S, d]
+    try:
+        with Phase("7d (tp: four ranks over gloo)"):
+            with open(os.path.join(work, "spec.json"), "w") as f:
+                json.dump({"runs": runs}, f)
+            start_ranks("--tp-rank", TP_WORLD, work, "7d")
+            with open(os.path.join(work, "result.json")) as f:
+                res = json.load(f)
+            total = {k: 0 for k in fa.launches}
+            failures = []
+            for run in runs:
+                r = res[run["name"]]
+                steps = DIST_STEPS + (1 if run["save"] else 0)
+                log(f"7d {run['name']}: losses {r['losses']} (phase 4: "
+                    f"{phase4['losses'][:DIST_STEPS]}), step seconds {r['step_s']}, peak mem "
+                    f"by rank {[round(g, 2) for g in r['peak_gib']]} GiB, parameters vs one "
+                    f"process relative L2 {r['rel']:.4g} (bound {DIST_PARAM_REL}), launches by "
+                    f"rank {r.get('next_launches', r['launches'])}, flash shapes "
+                    f"{r['shapes'][0]}, on {card}")
+                for counts in r.get("next_launches", r["launches"]):
+                    for k, v in counts.items():
+                        total[k] += v
+                    if counts != fa.expected_launches(bf16=N_LAYERS * MICROBATCHES * steps):
+                        failures.append(f"{run['name']}: launches {counts}")
+                want_shapes = [[name, local_heads, "torch.bfloat16"]
+                               for name in ("flash_bwd_dkv", "flash_bwd_dq", "flash_fwd")]
+                if any(sh != want_shapes for sh in r["shapes"]):
+                    failures.append(f"{run['name']}: flash shapes {r['shapes']}, want "
+                                    f"{want_shapes} on every rank")
+                if run["fault"]:
+                    if r["rel"] <= DIST_PARAM_REL:
+                        failures.append(f"the planted fault passes: {r['rel']:.4g}")
+                    continue
+                if not r["rel"] <= DIST_PARAM_REL:
+                    failures.append(f"{run['name']}: parameters {r['rel']:.4g} from one process's")
+                worst = max(abs(a - b) for a, b in zip(r["losses"], phase4["losses"]))
+                if worst > DIST_LOSS_ABS:
+                    failures.append(f"{run['name']}: losses {r['losses']} vs phase 4's "
+                                    f"{phase4['losses'][:DIST_STEPS]}")
+            if failures:
+                raise AssertionError("7d: " + "; ".join(failures))
+
+            saved = res["fsdp 2 x tp 2"]
+            restorer = gpt345m.trainer(gpt345m.bundle())
+            t0 = time.perf_counter()
+            restored = restorer.restore_from(CheckpointManager(ckpt))
+            torch.cuda.synchronize()
+            t_restore = time.perf_counter() - t0
+            got = state_hashes(restored)
+            differ = [k for k in saved["hashes"] if got.get(k) != saved["hashes"][k]]
+            batch = list(itertools.islice(gpt345m.bundle().make_data(
+                gpt345m.GLOBAL_BATCH, seed=0), DIST_STEPS + 1))[-1]
+            restored, metrics = restorer.train_step(restored, batch)
+            ranks_next = torch.load(os.path.join(work, "next.pt"))
+            diff = norm = 0.0
+            for name, p in restored.model.named_parameters():
+                theirs = ranks_next[name].to(p.device)
+                diff += (p.detach() - theirs).square().sum().item()
+                norm += theirs.square().sum().item()
+            rel_next = math.sqrt(diff / norm)
+            log(f"7d the fsdp 2 x tp 2 checkpoint at step {saved['hashes']['step']}: save "
+                f"{saved['save_s']:.2f}s, restore in one process {t_restore:.2f}s; "
+                f"{len(got) - 1} tensors and counts compared, {len(differ)} differ "
+                f"{differ[:6]}; the next step: loss {float(metrics['loss']):.6f} in one "
+                f"process, {saved['next_loss']:.6f} on the ranks, parameters relative L2 "
+                f"{rel_next:.4g} (bound {DIST_PARAM_REL})")
+            if differ or set(got) != set(saved["hashes"]):
+                raise AssertionError("7d: the restored state is not the saved one")
+            if not (abs(float(metrics["loss"]) - saved["next_loss"]) <= DIST_LOSS_ABS
+                    and rel_next <= DIST_PARAM_REL):
+                raise AssertionError("7d: one process's next step is not the ranks'")
+            del restored, restorer, ranks_next
     finally:
         shutil.rmtree(work, ignore_errors=True)
     return total
@@ -2071,6 +2293,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     phases["7b"] = two_ranks(phase4)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phases["7d"] = tp_ranks(card, phase4)
 
     # -- 8. the elastic worker under an emulated agent, with phase 7's objects freed
     gc.collect()
@@ -2117,6 +2342,8 @@ def clear_chunk_cache() -> None:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--rank"]:
         sys.exit(rank_main(int(sys.argv[2]), sys.argv[3]))
+    if sys.argv[1:2] == ["--tp-rank"]:
+        sys.exit(tp_rank_main(int(sys.argv[2]), sys.argv[3]))
     if sys.argv[1:2] == ["--bert"]:
         sys.exit(bert_train(sys.argv[2], sys.argv[3]))
     # the checkpoints' host chunk cache (core/chunk_cache.py) in RAM where the

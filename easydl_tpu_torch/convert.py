@@ -14,9 +14,9 @@ tree of ``easydl_tpu/models/transformer.py`` as numpy arrays (unbox it with
 Torch's ``nn.Linear`` keeps ``weight [out, in]``, so kernels are flattened
 over the head axes and transposed. Both directions only reshape and
 transpose: a round trip is bit-exact. Both also map a block of each
-parameter, as FSDP2 shards it (``core/sharding.py``: whole heads of a q/k/v
-bias, a slice of ``embed`` elsewhere), to the block of the JAX leaf that
-holds it, which is how multi-process checkpoints lay out their chunks
+parameter, as FSDP2 and ``tp`` split it (``core/sharding.py``: whole heads
+of a q/k/v bias, a slice of ``embed``, of the heads, of ``mlp`` or of the
+vocab elsewhere), to the block of the JAX leaf that holds it, which is how multi-process checkpoints lay out their chunks
 (``core/jax_state.py``). :func:`to_jax_tree` and
 :func:`from_jax_tree` are the GPT bundle's ``JaxLayout``, which checkpoints
 use to lay out the weights and the Adam moments.
@@ -24,7 +24,7 @@ use to lay out the weights and the Adam moments.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -33,26 +33,29 @@ _PROJ = ("q", "k", "v")
 _NORMS = ("ln_attn", "ln_mlp")
 
 
-def to_jax_tree(sd: Mapping[str, torch.Tensor], n_heads: int) -> Dict[str, Any]:
+def to_jax_tree(sd: Mapping[str, torch.Tensor], n_heads: int,
+                head_dim: Optional[int] = None) -> Dict[str, Any]:
     """``state_dict``-keyed tensors -> the flax tree's layout, as torch
-    tensors on the input's device (any device, ``meta`` included)."""
+    tensors on the input's device (any device, ``meta`` included).
+    ``head_dim`` (default: the whole q kernel's rows over ``n_heads``) lays
+    out a block of the heads, as ``tp`` splits them, as its heads."""
     n_layers = 1 + max(int(k.split(".")[1]) for k in sd if k.startswith("blocks."))
 
     def stack(suffix):
         return torch.stack([sd[f"blocks.{i}.{suffix}"] for i in range(n_layers)])
 
     blocks: Dict[str, Dict[str, torch.Tensor]] = {}
-    head_dim = sd["blocks.0.q.weight"].shape[0] // n_heads
+    head_dim = head_dim or sd["blocks.0.q.weight"].shape[0] // n_heads
+    # by head_dim, not n_heads: a block cut at a head boundary maps to its heads
     for name in _PROJ:
         w = stack(name + ".weight")  # [L, H*hd, D]
         blocks[name] = {
-            "kernel": w.transpose(1, 2).reshape(n_layers, w.shape[2], n_heads, -1).contiguous(),
-            # by head_dim, not n_heads: a bias cut at a head boundary maps to its heads
+            "kernel": w.transpose(1, 2).reshape(n_layers, w.shape[2], -1, head_dim).contiguous(),
             "bias": stack(name + ".bias").reshape(n_layers, -1, head_dim),
         }
     w = stack("out.weight")  # [L, D, H*hd]
     blocks["out"] = {
-        "kernel": w.transpose(1, 2).reshape(n_layers, n_heads, -1, w.shape[1]).contiguous(),
+        "kernel": w.transpose(1, 2).reshape(n_layers, -1, head_dim, w.shape[1]).contiguous(),
         "bias": stack("out.bias"),
     }
     for name in ("up", "down"):

@@ -20,19 +20,22 @@ tree. ``optax.adamw`` and ``optax.adam`` both keep their moments at
 
 A model sharded by FSDP2 holds ``DTensor`` parameters and moments. Then
 :func:`to_leaves` and :func:`load_leaves` take this rank's blocks: the
-layout maps a parameter's local shard to a block of its JAX leaf, and
+layout maps a parameter's local shard to a block of its JAX leaf,
 :func:`leaf_regions` says where that block lies in the leaf, so that each
-rank writes and reads only its own chunks.
+rank writes and reads only its own chunks, and :func:`written_leaves` which
+of its blocks a rank writes (one replica of each block is written).
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor.placement_types import _StridedShard
 
 from easydl_tpu_torch.core import prng
 
@@ -186,71 +189,105 @@ def load_leaves(leaves: Mapping[str, np.ndarray], model: torch.nn.Module,
     return int(leaves[".step"])
 
 
-def _placement(param: torch.Tensor) -> Tuple[int, int, int]:
-    """(dim, parts, index): ``param`` is split along ``dim`` into ``parts``
-    chunks (``torch.chunk``'s sizes, as FSDP2 cuts them) and this rank holds
-    chunk ``index``; (0, 1, 0) for a whole tensor."""
+def splits(param: torch.Tensor) -> Dict[int, List[Tuple[str, int, int]]]:
+    """How ``param`` is split: for each tensor dimension it splits, the
+    ``(mesh axis, parts, this rank's index)`` of every cut, outer first.
+    ``Shard`` placements cut in mesh order; FSDP2's ``_StridedShard`` cuts
+    inside the ``Shard`` cuts it strides over (FSDP2 shards the ``tp``
+    block). Each cut takes ``torch.chunk``'s sizes, as FSDP2 pads them."""
     if not isinstance(param, DTensor):
-        return 0, 1, 0
-    shards = [(pl.dim, m) for m, pl in enumerate(param.placements) if isinstance(pl, Shard)]
-    if len(shards) > 1 or any(not isinstance(pl, (Shard, Replicate)) for pl in param.placements):
-        raise NotImplementedError(f"placements {param.placements}: one Shard at most")
-    if not shards:
-        return 0, 1, 0
-    dim, m = shards[0]
-    return dim, param.device_mesh.size(m), param.device_mesh.get_local_rank(m)
+        return {}
+    mesh = param.device_mesh
+    outer: Dict[int, List[Tuple[str, int, int]]] = {}
+    inner: Dict[int, List[Tuple[str, int, int, int]]] = {}
+    for m, pl in enumerate(param.placements):
+        cut = (mesh.mesh_dim_names[m], mesh.size(m), mesh.get_local_rank(m))
+        if isinstance(pl, _StridedShard):
+            inner.setdefault(pl.dim, []).append((*cut, pl.split_factor))
+        elif isinstance(pl, Shard):
+            outer.setdefault(pl.dim, []).append(cut)
+        elif not isinstance(pl, Replicate):
+            raise NotImplementedError(f"placements {param.placements}: Shard, _StridedShard "
+                                      "or Replicate only")
+    for dim, cuts in inner.items():
+        for axis, parts, index, factor in cuts:
+            if factor != math.prod(c[1] for c in outer.get(dim, [])):
+                raise NotImplementedError(f"placements {param.placements}: a _StridedShard "
+                                          "that does not stride over the cuts before it")
+            outer.setdefault(dim, []).append((axis, parts, index))
+    return {d: [c for c in cuts if c[1] > 1] for d, cuts in outer.items()
+            if any(c[1] > 1 for c in cuts)}
 
 
-def _chunk_shape(shape, dim: int, parts: int, index: int) -> Tuple[int, ...]:
-    size = -(-shape[dim] // parts)
-    out = list(shape)
-    out[dim] = max(0, min(size, shape[dim] - index * size))
-    return tuple(out)
-
-
-def is_writer(model: torch.nn.Module) -> bool:
-    """Whether this rank holds replica 0 of its shards (its coordinate is 0
-    on every mesh dimension that replicates): the one that saves them."""
-    for p in model.parameters():
-        if isinstance(p, DTensor):
-            return all(p.device_mesh.get_local_rank(m) == 0
-                       for m, pl in enumerate(p.placements) if isinstance(pl, Replicate))
-    return True
+def _block(param: torch.Tensor) -> List[Tuple[int, int]]:
+    """``[(start, stop)]`` per dimension: where this rank's block of
+    ``param`` lies in the whole parameter."""
+    bounds = [(0, d) for d in param.shape]
+    for dim, cuts in splits(param).items():
+        start, stop = bounds[dim]
+        for _, parts, index in cuts:
+            size = -(-(stop - start) // parts)
+            start, stop = (start + min(index * size, stop - start),
+                           start + min((index + 1) * size, stop - start))
+        if start == stop:
+            raise NotImplementedError(f"an empty block of a {tuple(param.shape)} parameter")
+        bounds[dim] = (start, stop)
+    return bounds
 
 
 def leaf_regions(model: torch.nn.Module, layout: JaxLayout) -> Dict[str, List[Tuple[int, int]]]:
     """Where this rank's block of each parameter and moment leaf lies in the
     leaf, as ``[(start, stop)]`` per dimension, for the chunk names of the
     checkpoint format. Reckoned from shapes alone: the layout is applied to
-    empty tensors shaped like each chunk index's shards, and the one leaf
-    dimension whose size follows the index is the sharded one. Raises if the
-    layout does not keep a shard whole."""
+    empty tensors whose one dimension is cut to the block's length, and to
+    its stop; the leaf dimension that follows is the one the block splits,
+    and the leaf's sizes give the leaf block's. A parameter may be split on
+    up to as many dimensions as it has (``tp`` and ``fsdp`` on two). Raises
+    if the layout does not keep a block whole."""
     params = _params_by_name(model)
-    where = {n: _placement(p) for n, p in params.items()}
-    parts = max(pl[1] for pl in where.values())
+    blocks = {n: _block(p) for n, p in params.items()}
 
-    def shapes(index: Optional[int]) -> Dict[str, Tuple[int, ...]]:
-        meta = {n: torch.empty(tuple(p.shape) if index is None else
-                               _chunk_shape(p.shape, where[n][0], where[n][1],
-                                            index if where[n][1] > 1 else 0),
-                               device="meta") for n, p in params.items()}
+    def shapes(dim: Optional[int] = None, to_stop: bool = False) -> Dict[str, Tuple[int, ...]]:
+        meta = {}
+        for n, p in params.items():
+            shape = list(p.shape)
+            if dim is not None and dim < len(shape):
+                start, stop = blocks[n][dim]
+                shape[dim] = stop if to_stop else stop - start
+            meta[n] = torch.empty(shape, device="meta")
         flat: Dict[str, Any] = {}
         _flatten(layout.to_jax(meta), "", flat)
         return {k: tuple(t.shape) for k, t in flat.items()}
 
-    full = shapes(None)
-    by_index = [shapes(i) for i in range(parts)]
-    index = max((pl[2] for pl in where.values()), default=0)
-    regions: Dict[str, List[Tuple[int, int]]] = {}
-    for key, shape in full.items():
-        split = sorted({d for s in by_index for d in range(len(shape)) if s[key][d] != shape[d]})
-        bounds = [(0, d) for d in shape]
-        if len(split) > 1 or (split and sum(s[key][split[0]] for s in by_index) != shape[split[0]]):
-            raise ValueError(f"leaf {key}: the layout splits a shard over dims {split}")
-        if split:
-            d = split[0]
-            start = sum(s[key][d] for s in by_index[:index])
-            bounds[d] = (start, start + by_index[index][key][d])
-        for prefix in (".params", *(p for p, _ in _MOMENTS)):
-            regions[prefix + key] = bounds
-    return regions
+    full = shapes()
+    bounds = {k: [(0, d) for d in shape] for k, shape in full.items()}
+    for dim in range(max(p.dim() for p in params.values())):
+        length, stop = shapes(dim), shapes(dim, to_stop=True)
+        for key, shape in full.items():
+            split = [d for d in range(len(shape)) if length[key][d] != shape[d]]
+            if len(split) > 1 or any(bounds[key][d] != (0, shape[d]) for d in split):
+                raise ValueError(f"leaf {key}: the layout splits a block over dims {split}")
+            for d in split:
+                bounds[key][d] = (stop[key][d] - length[key][d], stop[key][d])
+    return {prefix + key: b for key, b in bounds.items()
+            for prefix in (".params", *(p for p, _ in _MOMENTS))}
+
+
+def written_leaves(model: torch.nn.Module, layout: JaxLayout, coordinate: Mapping[str, int]):
+    """The parameter and moment leaves whose block this rank writes: those
+    of whose replicas it holds the first, its coordinate (``coordinate``:
+    mesh axis -> this rank's index on the whole mesh) being 0 on every axis
+    that does not split the parameter. Decided leaf by leaf: under ``tp``
+    the LayerNorms are whole on every ``tp`` rank, the embedding is not."""
+    params = _params_by_name(model)
+    # the layout keeps dtypes: f64 marks what another rank writes
+    meta = {}
+    for n, p in params.items():
+        split = {axis for cuts in splits(p).values() for axis, _, _ in cuts}
+        mine = all(i == 0 for axis, i in coordinate.items() if axis not in split)
+        meta[n] = torch.empty(p.shape, dtype=torch.float32 if mine else torch.float64,
+                              device="meta")
+    flat: Dict[str, Any] = {}
+    _flatten(layout.to_jax(meta), "", flat)
+    return {prefix + k for k, t in flat.items() if t.dtype == torch.float32
+            for prefix in (".params", *(p for p, _ in _MOMENTS))}

@@ -19,6 +19,19 @@ the same :class:`MeshSpec` describes a job in either package.
   denominator over every rank's rows while the trainer holds the batch
   group, so each rank computes the loss of the global batch, as the JAX
   step does on its sharded batch.
+- :func:`batch_coordinate` and :func:`batch_process_group`: ``tp`` is the
+  innermost axis of :data:`AXES`, and the ranks of one ``tp`` group hold
+  the same rows. A rank's place in the batch is its coordinate on (``dp``,
+  ``fsdp``), and the batch group is the ranks that share its ``tp``
+  coordinate, one rank of each ``tp`` group.
+- :func:`copy_to_tp` and :func:`reduce_from_tp`: Megatron's pair of
+  collectives over a ``tp`` group, which GSPMD places in the JAX package.
+  The input of a column-parallel product goes through :func:`copy_to_tp`
+  (identity forward, all-reduce backward: each rank's product gives only
+  its columns' share of the input's gradient); the output of a
+  row-parallel product through :func:`reduce_from_tp` (all-reduce forward,
+  identity backward). With no group, or a group of one rank, each is the
+  identity.
 """
 
 from __future__ import annotations
@@ -28,7 +41,7 @@ import contextvars
 import math
 import os
 from datetime import timedelta
-from typing import Iterator, Optional, Tuple
+from typing import Iterator, List, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -113,6 +126,38 @@ def batch_divisor(mesh: DeviceMesh) -> int:
     return math.prod(axis_size(mesh, a) for a in BATCH_AXES)
 
 
+def batch_coordinate(mesh: DeviceMesh) -> int:
+    """This rank's place in the batch: its coordinate on the batch axes,
+    row-major (``dp`` the major stride). The ranks' rows, in this order,
+    make up the global batch; the ranks of one ``tp`` group share it."""
+    coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+    place = 0
+    for a in BATCH_AXES:
+        place = place * axis_size(mesh, a) + coord[a]
+    return place
+
+
+def batch_ranks(mesh: DeviceMesh) -> List[List[int]]:
+    """The global ranks of each batch group: the ranks that share every
+    coordinate but the batch axes', in batch order."""
+    names = list(mesh.mesh_dim_names)
+    batch = [names.index(a) for a in BATCH_AXES]
+    rest = [i for i in range(len(names)) if i not in batch]
+    ranks = mesh.mesh.permute(*rest, *batch).reshape(-1, batch_divisor(mesh))
+    return ranks.tolist()
+
+
+def batch_process_group(mesh: DeviceMesh) -> dist.ProcessGroup:
+    """The process group of this rank's batch group (the default group when
+    the batch axes are the whole mesh). Every rank calls it together: each
+    batch group is created on all of them."""
+    groups = batch_ranks(mesh)
+    if len(groups) == 1:
+        return dist.group.WORLD
+    mine, _ = dist.new_subgroups_by_enumeration(groups)
+    return mine
+
+
 # ------------------------------------------------------------ batch reductions
 class BatchGroup:
     """An open :func:`batch_group`: the ranks whose rows make up the batch,
@@ -163,3 +208,52 @@ def batch_sum(*xs: torch.Tensor) -> Tuple[torch.Tensor, ...]:
         return xs
     opened.summed = True
     return _BatchSum.apply(opened.group, *xs)
+
+
+# ------------------------------------------------------- tensor parallelism
+def _active(group: Optional[dist.ProcessGroup]) -> bool:
+    return group is not None and dist.get_world_size(group) > 1
+
+
+class _CopyToTp(torch.autograd.Function):
+    """Identity forward; the backward sums the ranks' gradients over the
+    ``tp`` group (into a new tensor: the incoming one is left as it is)."""
+
+    @staticmethod
+    def forward(ctx, group, x):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(grad, group=ctx.group)
+        return None, grad
+
+
+class _ReduceFromTp(torch.autograd.Function):
+    """Sums the ranks' partial results over the ``tp`` group (into a new
+    tensor: a product that a selective checkpoint keeps must not change);
+    the backward passes the gradient through, as every rank holds the sum."""
+
+    @staticmethod
+    def forward(ctx, group, x):
+        out = x.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        return None, grad
+
+
+def copy_to_tp(x: torch.Tensor, group: Optional[dist.ProcessGroup]) -> torch.Tensor:
+    """``x`` on every rank of ``group``, whose backward all-reduces: the
+    input of a column-parallel product."""
+    return _CopyToTp.apply(group, x) if _active(group) else x
+
+
+def reduce_from_tp(x: torch.Tensor, group: Optional[dist.ProcessGroup]) -> torch.Tensor:
+    """``x`` summed over ``group`` (all-reduce forward, identity backward):
+    the output of a row-parallel product."""
+    return _ReduceFromTp.apply(group, x) if _active(group) else x

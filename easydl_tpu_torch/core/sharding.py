@@ -1,4 +1,4 @@
-"""Sharding rules: logical parameter axes -> mesh axes, for FSDP2.
+"""Sharding rules: logical parameter axes -> mesh axes, for FSDP2 and ``tp``.
 
 Counterpart of ``easydl_tpu/core/sharding.py``. The JAX models annotate each
 parameter with logical axis names and one rule table (:data:`DEFAULT_RULES`,
@@ -15,8 +15,19 @@ parameter that the rules replicate (the q/k/v and ``up`` biases, whose axes
 carry no ``fsdp``) is sharded on dim 0 anyway; the JAX package keeps those
 whole on every device. The ``dp`` axis replicates everything (HSDP).
 
-The other mesh axes are not ported yet: :func:`check_mesh` raises for
-``tp``, ``sp``, ``ep`` or ``pp`` > 1.
+:func:`tp_dim` is the dimension that the rules put on ``tp``: the heads of
+q/k/v (dim 0) and ``out`` (dim 1), the hidden units of ``up`` (dim 0) and
+``down`` (dim 1), the vocab of ``tok_emb`` (dim 0), and dim 0 of the
+q/k/v and ``up`` biases. The trainer splits those over ``tp`` before FSDP2
+splits them again over ``fsdp``; the rest (the LayerNorms, ``out.bias``,
+``down.bias``, ``pos_emb``) stays whole on every ``tp`` rank. A q/k/v or
+``up`` bias then has ``tp`` and FSDP2's fallback on the same dimension:
+FSDP2 cuts each ``tp`` block again (``_StridedShard``), so a rank's block
+stays contiguous, whole heads of the JAX ``(heads, kv)`` leaf.
+
+The mesh is ``dp`` x ``fsdp`` x ``tp``: :func:`check_mesh` raises for
+``sp``, ``ep`` or ``pp`` > 1, and for a ``tp`` that does not divide the
+heads, the hidden units or the vocab.
 """
 
 from __future__ import annotations
@@ -47,8 +58,7 @@ DEFAULT_RULES: Tuple[Tuple[str, Any], ...] = (
 )
 
 #: the ROADMAP.md item that brings each mesh axis the port cannot shard yet
-UNPORTED_AXES = {"tp": "Queue A 9b", "sp": "Queue A 14", "ep": "Queue A 14",
-                 "pp": "Queue A 14"}
+UNPORTED_AXES = {"sp": "Queue A 7", "ep": "Queue A 7", "pp": "Queue A 7"}
 
 #: logical axes of one dimension: a name, or the names a dimension merges
 DimAxes = Tuple[str, ...]
@@ -107,6 +117,15 @@ def fsdp_dim(axes: Tuple[DimAxes, ...]) -> Optional[int]:
     return dims[0] if dims else None
 
 
+def tp_dim(axes: Tuple[DimAxes, ...]) -> Optional[int]:
+    """The dimension that the rules split over ``tp``, or None (the
+    parameter stays whole on every ``tp`` rank)."""
+    dims = [i for i, on in enumerate(mesh_axes(axes)) if "tp" in on]
+    if len(dims) > 1:
+        raise ValueError(f"axes {axes} put tp on dims {dims}")
+    return dims[0] if dims else None
+
+
 def fsdp_placement(axes: Tuple[DimAxes, ...]) -> int:
     """The dimension FSDP2 shards: :func:`fsdp_dim`, else dim 0 (FSDP2
     shards every parameter it manages; the JAX package replicates these)."""
@@ -125,11 +144,54 @@ def shard_placement_fn(names: Dict[Any, str], param_axes: Callable[[str], Tuple[
     return placement
 
 
-def check_mesh(spec: MeshSpec) -> None:
+def tp_group_of(t):
+    """The ``tp`` process group that ``t`` (a parameter, its gradient, or
+    one as FSDP2 gathers it) is split over, or None when it is whole on
+    every ``tp`` rank."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    if not isinstance(t, DTensor):
+        return None
+    mesh = t.device_mesh
+    for m, (name, pl) in enumerate(zip(mesh.mesh_dim_names, t.placements)):
+        if name == "tp" and isinstance(pl, Shard) and mesh.size(m) > 1:
+            return mesh.get_group(m)
+    return None
+
+
+def split_over_tp(model, param_axes: Callable[[str], Tuple[DimAxes, ...]], tp_mesh) -> None:
+    """Replaces each parameter of ``model`` that the rules put on ``tp`` by
+    this rank's block of it (``torch.chunk``'s, on :func:`tp_dim`), a
+    ``DTensor`` on the 1-D ``tp`` mesh ``tp_mesh``; the others stay whole."""
+    from torch import nn
+    from torch.distributed.tensor import DTensor, Shard
+
+    parts, index = tp_mesh.size(), tp_mesh.get_local_rank()
+    for name, p in list(model.named_parameters()):
+        dim = tp_dim(param_axes(name))
+        if dim is None:
+            continue
+        if p.shape[dim] % parts:
+            raise ValueError(f"{name} {tuple(p.shape)}: tp={parts} does not divide dim {dim}")
+        block = p.detach().chunk(parts, dim)[index].contiguous()
+        owner, _, attr = name.rpartition(".")
+        setattr(model.get_submodule(owner), attr, nn.Parameter(
+            DTensor.from_local(block, tp_mesh, [Shard(dim)], run_check=False),
+            requires_grad=p.requires_grad))
+
+
+def check_mesh(spec: MeshSpec, cfg: Any = None) -> None:
     """Raises ``NotImplementedError`` for a mesh axis the port cannot shard
-    yet, naming the ROADMAP.md item that brings it."""
+    yet, naming the ROADMAP.md item that brings it, and ``ValueError`` when
+    ``tp`` does not divide the model's heads, hidden units or vocab (``cfg``:
+    a ``TransformerConfig``, or None to check the axes alone)."""
     for axis, item in UNPORTED_AXES.items():
         if getattr(spec, axis) > 1:
             raise NotImplementedError(
                 f"mesh {spec.key()}: {axis} > 1 is not ported yet (ROADMAP.md {item}); "
-                "the port trains on dp x fsdp")
+                "the port trains on dp x fsdp x tp")
+    if spec.tp > 1 and cfg is not None:
+        for what in ("n_heads", "d_ff", "vocab"):
+            if getattr(cfg, what) % spec.tp:
+                raise ValueError(f"mesh {spec.key()}: tp={spec.tp} does not divide "
+                                 f"{what}={getattr(cfg, what)}")

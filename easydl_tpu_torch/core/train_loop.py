@@ -1,5 +1,5 @@
 """Training core of the port: one device, or one process per device on a
-``dp`` x ``fsdp`` mesh.
+``dp`` x ``fsdp`` x ``tp`` mesh.
 
 Counterpart of ``easydl_tpu/core/train_loop.py``. With no mesh, on one
 device:
@@ -20,15 +20,20 @@ device:
   key, unfolded.
 
 With a mesh (``mesh`` or ``mesh_spec``, after
-``core.mesh.init_distributed``), every rank builds the same seeded f32 model,
-and FSDP2 shards each block and the root over the (``dp``, ``fsdp``)
-sub-mesh: HSDP, parameters and Adam moments split over ``fsdp`` on the
-dimension that ``core/sharding.py`` reads from the rules, whole on every
-``dp`` replica. FSDP2's mixed-precision policy gathers the parameters in
-``compute_dtype`` (the cast) and reduces the gradients in f32, summing
-them over the ranks. :meth:`Trainer.train_step` takes this process's rows
-of the global batch (the ranks' rows, concatenated in rank order, make it)
-and computes what the JAX step computes on the global batch:
+``core.mesh.init_distributed``), every rank builds the same seeded f32 model.
+With ``tp`` > 1 each parameter that the rules put on ``tp`` becomes a
+``DTensor`` on the ``tp`` sub-mesh, this rank's block of it on the
+dimension ``core/sharding.py`` reads from the rules (the model computes on
+the blocks, ``models/transformer.py``). FSDP2 then shards each block and
+the root over the (``dp``, ``fsdp``) sub-mesh: HSDP, parameters and Adam
+moments split over ``fsdp`` on the dimension the rules give, whole on
+every ``dp`` replica (HSDP+TP where ``tp`` > 1). FSDP2's mixed-precision
+policy gathers the parameters in ``compute_dtype`` (the cast) and reduces
+the gradients in f32, summing them over the ranks of the batch axes.
+:meth:`Trainer.train_step` takes this process's rows of the global batch
+(the batch groups' rows, concatenated in the order of their coordinate on
+(``dp``, ``fsdp``), make it; the ranks of one ``tp`` group take the same
+rows) and computes what the JAX step computes on the global batch:
 
 - microbatch i is the global rows ``[i·m, (i+1)·m)``, ``m =
   global_batch / grad_accum``: the ranks all-gather the token ids and each
@@ -41,7 +46,9 @@ and computes what the JAX step computes on the global batch:
   (BERT's mask) is the JAX step's, each rank drawing its own rows;
 - the gradients of all but the last microbatch stay on their rank, summed
   in f32 (FSDP2 accumulates in its ``reduce_dtype``), and are reduced once;
-  ``grad_norm`` is the norm over every shard.
+  ``grad_norm`` is the norm over every shard: squares summed over ``fsdp``,
+  and over ``tp`` for the parameters split on it, not for those whole on
+  every ``tp`` rank.
 
 The state is updated in place (PyTorch's idiom; the JAX step donates and
 replaces it): :meth:`Trainer.train_step` returns the same ``TrainState``.
@@ -65,7 +72,8 @@ from torch.func import functional_call
 
 from easydl_tpu_torch.core import jax_state, prng, sharding
 from easydl_tpu_torch.core.checkpoint import Shards
-from easydl_tpu_torch.core.mesh import AXES, MeshSpec, axis_size, batch_group, build_mesh
+from easydl_tpu_torch.core.mesh import (AXES, MeshSpec, axis_size, batch_coordinate, batch_group,
+                                        batch_process_group, build_mesh)
 from easydl_tpu_torch.utils.device import require_device
 from easydl_tpu_torch.utils.logging import get_logger
 
@@ -162,17 +170,22 @@ class Trainer:
         self.loss_fn = loss_fn
         self.optimizer = optimizer
         if mesh is not None or mesh_spec is not None:
-            sharding.check_mesh(mesh_spec if mesh is None else
-                                MeshSpec(**{a: axis_size(mesh, a) for a in AXES}))
+            mesh_spec = mesh_spec if mesh is None else MeshSpec(
+                **{a: axis_size(mesh, a) for a in AXES})
+            sharding.check_mesh(mesh_spec)
             if param_axes is None:
                 raise ValueError("a mesh needs the model's param_axes (ModelBundle.param_axes)")
             mesh = mesh if mesh is not None else build_mesh(mesh_spec, self.device)
         self.mesh = mesh
+        self.mesh_spec = mesh_spec
         if mesh is not None:
             self.param_axes = param_axes
             self.batch_mesh = mesh["dp", "fsdp"]
             self.ranks = self.batch_mesh.size()
-            self.rank = dist.get_rank()
+            #: this rank's place in the batch (its tp group shares it) and
+            #: the ranks whose rows make up the batch
+            self.rank = batch_coordinate(mesh)
+            self.batch_pg = batch_process_group(mesh)
             micro = config.global_batch // max(config.grad_accum, 1)
             if micro % self.ranks:
                 raise ValueError(f"microbatch {micro} (global_batch {config.global_batch} / "
@@ -190,9 +203,13 @@ class Trainer:
                           rng=prng.PRNGKey(self.config.seed))
 
     def _shard(self, model: nn.Module) -> None:
-        """FSDP2 over the (dp, fsdp) sub-mesh: each block, then the root."""
+        """Each parameter the rules put on tp split over the tp sub-mesh,
+        then FSDP2 over the (dp, fsdp) sub-mesh: each block, then the root."""
         from torch.distributed.fsdp import MixedPrecisionPolicy, fully_shard
 
+        sharding.check_mesh(self.mesh_spec, getattr(model, "cfg", None))
+        if self.mesh_spec.tp > 1:
+            sharding.split_over_tp(model, self.param_axes, self.mesh["tp"])
         names = {p: n for n, p in model.named_parameters()}
         # the parameters in the compute dtype, as JAX's cast_floating; the
         # activations keep the model's dtype between the blocks
@@ -224,9 +241,10 @@ class Trainer:
         if self.mesh is None:
             return leaves
         shapes = self.leaf_shapes(state)
-        writer = jax_state.is_writer(state.model)
         regions = jax_state.leaf_regions(state.model, self._layout())
-        return {k: Shards(shapes[k][0], shapes[k][1], [(regions[k], v)] if writer else [])
+        mine = jax_state.written_leaves(state.model, self._layout(),
+                                        dict(zip(AXES, self.mesh.get_coordinate())))
+        return {k: Shards(shapes[k][0], shapes[k][1], [(regions[k], v)] if k in mine else [])
                 if k in regions else v for k, v in leaves.items()}
 
     def leaf_shapes(self, state: TrainState) -> jax_state.Template:
@@ -277,8 +295,7 @@ class Trainer:
             loss, aux = functional_call(wrapped, cast, (batch, rng))
         else:
             model.set_requires_gradient_sync(reduce_grads)
-            # the batch axes are the whole mesh (check_mesh: no other axis > 1)
-            with batch_group(dist.group.WORLD) as opened:
+            with batch_group(self.batch_pg) as opened:
                 loss, aux = loss_fn(model, batch, rng)
             if not opened.summed:  # the gradients are summed: the loss must divide
                 raise RuntimeError(
@@ -305,7 +322,7 @@ class Trainer:
         whole = {}
         for k, v in batch.items():
             parts = [torch.empty_like(v) for _ in range(self.ranks)]
-            dist.all_gather(parts, v.contiguous())
+            dist.all_gather(parts, v.contiguous(), group=self.batch_pg)
             whole[k] = torch.cat(parts)
         first = [(i * self.ranks + self.rank) * share for i in range(accum)]
         return [{k: v[a:a + share] for k, v in whole.items()} for a in first]
@@ -325,17 +342,14 @@ class Trainer:
             for k, v in aux.items():
                 aux_sum[k] = aux_sum.get(k, 0.0) + v.detach()
         grads = [p.grad for p in state.model.parameters() if p.grad is not None]
-        if self.mesh is not None:  # this rank's shards of the reduced gradients
-            grads = [g.to_local() for g in grads]
         scale = 1.0 / len(micro)
-        if len(micro) > 1:
-            torch._foreach_mul_(grads, scale)
-        # multi-tensor ops: a few launches for all the gradients together
-        grad_norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
-        if self.mesh is not None:  # the norm over every shard: squares summed over fsdp
-            square = grad_norm.square()
-            dist.all_reduce(square, group=self.batch_mesh.get_group("fsdp"))
-            grad_norm = square.sqrt()
+        if self.mesh is None:
+            if len(micro) > 1:
+                torch._foreach_mul_(grads, scale)
+            # multi-tensor ops: a few launches for all the gradients together
+            grad_norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        else:
+            grad_norm = self._sharded_norm(grads, scale)
         state.optimizer.step()
         state.step += 1
         metrics = {
@@ -344,6 +358,24 @@ class Trainer:
             **{k: v * scale for k, v in aux_sum.items()},
         }
         return state, metrics
+
+    def _sharded_norm(self, grads, scale: float) -> torch.Tensor:
+        """Scales this rank's shards of the reduced gradients by ``scale``
+        and returns the norm over every shard: squares summed over fsdp,
+        and over tp only for the gradients split on it (the others are whole
+        on every tp rank)."""
+        local = [g.to_local() for g in grads]
+        if scale != 1.0:
+            torch._foreach_mul_(local, scale)
+        on_tp = [sharding.tp_group_of(g) is not None for g in grads]
+        parts = [[g for g, t in zip(local, on_tp) if t == want] for want in (False, True)]
+        whole, split = (torch.linalg.vector_norm(torch.stack(torch._foreach_norm(p))).square()
+                        if p else torch.zeros((), device=self.device) for p in parts)
+        if any(on_tp):
+            dist.all_reduce(split, group=self.mesh.get_group("tp"))
+        square = whole + split
+        dist.all_reduce(square, group=self.batch_mesh.get_group("fsdp"))
+        return square.sqrt()
 
     def build_eval_step(self, eval_fn: Callable):
         """``(state, host_batch) -> aux`` of ``eval_fn(module, batch, rng) ->

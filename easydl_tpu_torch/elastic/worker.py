@@ -27,10 +27,14 @@ down and fails the worker, so the agent reports a crash. Each rank:
   world 1;
 - trains ``job.json``'s model with ``torch.optim.Adam(lr)`` (the JAX
   worker's ``optax.adam``) on the one-device ``Trainer`` or, with several
-  devices, on ``Trainer(mesh_spec=...)`` over ``dp`` x ``fsdp``;
+  devices, on ``Trainer(mesh_spec=...)`` over ``dp`` x ``fsdp`` x ``tp``
+  (``EASYDL_MESH``, else ``job.json``'s ``mesh`` with ``dp`` filling the
+  world);
 - draws agent rank r's rows as the JAX process does,
   ``make_data(global_batch // EASYDL_WORLD, seed=seed + r)``, and takes its
-  consecutive share of them, so the global batch is the JAX world's;
+  consecutive share of them (:func:`agent_rows`: the ranks of one ``tp``
+  group, consecutive local ranks, take the same share), so the global batch
+  is the JAX world's;
 - or, with ``data_dir`` in ``job.json``, reads files as the JAX worker
   does: every local rank builds the agent's dataset (``TokenFileDataset``
   or ``ArrayImageDataset`` at rank ``EASYDL_RANK`` of ``EASYDL_WORLD``, the
@@ -187,6 +191,22 @@ def unported(cfg: Mapping[str, Any]) -> List[str]:
     if data_dir and os.path.exists(os.path.join(data_dir, "sparse.npy")):
         out.append(f"data_dir {data_dir} of click logs (sparse.npy)")
     return out
+
+
+def agent_rows(per_agent: int, nproc: int, local_rank: int, tp: int = 1) -> slice:
+    """A local rank's rows of its agent's ``per_agent``: the agent's
+    ``nproc / tp`` batch ranks take consecutive shares in order. ``tp`` is
+    the mesh's innermost axis, so a ``tp`` group is ``tp`` consecutive local
+    ranks, which take the same share."""
+    if nproc % tp:
+        raise ValueError(f"tp={tp} does not divide the agent's {nproc} local ranks")
+    batch_ranks = nproc // tp
+    if per_agent % batch_ranks:
+        raise ValueError(f"the agent's {per_agent} rows do not split over {batch_ranks} "
+                         f"batch ranks ({nproc} local ranks, tp={tp})")
+    share = per_agent // batch_ranks
+    first = local_rank // tp * share
+    return slice(first, first + share)
 
 
 def _ready_marker(gate_file: str, local_rank: int) -> str:
@@ -485,10 +505,7 @@ def run_worker(env: Mapping[str, str], device: str = "cuda", local_rank: int = 0
     )
     timeline.emit(tl_path, "trainer_built", gen.generation, rank=gen.rank)
     per_agent = global_batch // max(gen.world, 1)
-    if per_agent % nproc:
-        raise ValueError(f"the agent's {per_agent} rows do not split over {nproc} local ranks")
-    share = per_agent // nproc
-    rows = slice(local_rank * share, (local_rank + 1) * share)
+    rows = agent_rows(per_agent, nproc, local_rank, mesh_spec.tp)
 
     go_file = env.get("EASYDL_GO_FILE", "")
     if go_file:

@@ -15,7 +15,9 @@ The mask is drawn inside the loss from the key the trainer passes
 (:func:`mlm_mask`): ``jax.random.bernoulli(rng, mask_prob, tokens.shape)``
 bit for bit (``core/prng.py``), so masking is fully deterministic given
 (seed, step), and a replayed step draws the mask it drew before. On a mesh
-each rank draws its rows of the global microbatch's mask.
+each rank draws its rows of the global microbatch's mask. Under ``tp`` the
+logits are split on the vocab, and the loss and the accuracy's argmax
+reduce over the ``tp`` group (``ops/vocab_parallel.py``).
 """
 
 from __future__ import annotations
@@ -24,7 +26,6 @@ import functools
 from typing import Dict, Tuple
 
 import torch
-import torch.nn.functional as F
 
 from easydl_tpu_torch import convert
 from easydl_tpu_torch.core.data import SyntheticTokens
@@ -34,6 +35,7 @@ from easydl_tpu_torch.core.prng import BatchKey
 from easydl_tpu_torch.core.sharding import gpt_param_axes
 from easydl_tpu_torch.models.registry import ModelBundle, register_model
 from easydl_tpu_torch.models.transformer import Transformer, TransformerConfig
+from easydl_tpu_torch.ops import vocab_parallel
 from easydl_tpu_torch.utils.device import require_device
 
 #: name -> (n_layers, d_model, n_heads)
@@ -100,10 +102,9 @@ def make_bert(
             raise RuntimeError("BERT's products are f32, as in the JAX package: "
                                "torch.backends.cuda.matmul.allow_tf32 must stay False")
         mask = mlm_mask(rng, tokens, mask_prob)
-        logits = model(torch.where(mask, MASK_ID, tokens)).float()
-        losses = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
-                                 tokens.reshape(-1).long(), reduction="none").view_as(mask)
-        hits = (logits.argmax(-1) == tokens) & mask
+        logits = model(torch.where(mask, MASK_ID, tokens))  # under tp: split on the vocab
+        losses = vocab_parallel.cross_entropy(logits, tokens)
+        hits = (vocab_parallel.argmax(logits) == tokens) & mask
         total, count, correct = batch_sum(torch.where(mask, losses, 0.0).sum(),
                                           mask.sum().float(), hits.sum().float())
         denom = count.clamp_min(1.0)
@@ -118,7 +119,8 @@ def make_bert(
         loss_fn=loss_fn,
         make_data=make_data,
         eval_fn=loss_fn,
-        jax_layout=JaxLayout(to_jax=functools.partial(convert.to_jax_tree, n_heads=n_heads),
+        jax_layout=JaxLayout(to_jax=functools.partial(convert.to_jax_tree, n_heads=n_heads,
+                                                     head_dim=cfg.head_dim),
                              from_jax=convert.from_jax_tree),
         param_axes=gpt_param_axes,
         param_count_hint=cfg.param_count,

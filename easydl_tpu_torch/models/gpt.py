@@ -11,7 +11,6 @@ import functools
 from typing import Dict, Tuple
 
 import torch
-import torch.nn.functional as F
 
 from easydl_tpu_torch import convert
 from easydl_tpu_torch.core.data import SyntheticTokens
@@ -22,6 +21,7 @@ from easydl_tpu_torch.core.sharding import gpt_param_axes
 from easydl_tpu_torch.models.registry import ModelBundle, register_model
 from easydl_tpu_torch.models.transformer import Transformer, TransformerConfig
 from easydl_tpu_torch.ops.fused_xent import fused_softmax_xent
+from easydl_tpu_torch.ops.vocab_parallel import cross_entropy
 from easydl_tpu_torch.utils.device import require_device
 
 #: name -> (n_layers, d_model, n_heads)
@@ -38,14 +38,10 @@ SIZES: Dict[str, Tuple[int, int, int]] = {
 def lm_loss(logits: torch.Tensor, targets: torch.Tensor, ignore_id: int = -1):
     """Mean next-token cross-entropy over targets != ``ignore_id``, in f32;
     over every rank's rows while the trainer holds a batch group
-    (``core.mesh.batch_sum``)."""
-    logits = logits.float()
+    (``core.mesh.batch_sum``). Logits split on the vocab over ``tp`` (a
+    ``DTensor``) reduce over the ``tp`` group (``ops/vocab_parallel.py``)."""
     mask = (targets != ignore_id).float()
-    losses = F.cross_entropy(
-        logits.reshape(-1, logits.shape[-1]),
-        targets.clamp_min(0).reshape(-1).long(),
-        reduction="none",
-    ).view_as(mask)
+    losses = cross_entropy(logits, targets.clamp_min(0))
     total, count = batch_sum((losses * mask).sum(), mask.sum())
     denom = count.clamp_min(1.0)
     return total / denom, denom
@@ -116,7 +112,8 @@ def make_gpt(
         make_data=make_data,
         # dense GPT: evaluation is the training loss
         eval_fn=loss_fn,
-        jax_layout=JaxLayout(to_jax=functools.partial(convert.to_jax_tree, n_heads=n_heads),
+        jax_layout=JaxLayout(to_jax=functools.partial(convert.to_jax_tree, n_heads=n_heads,
+                                                     head_dim=cfg.head_dim),
                              from_jax=convert.from_jax_tree),
         param_axes=gpt_param_axes,
         param_count_hint=cfg.param_count,

@@ -23,7 +23,22 @@ numerics rather than torch's defaults:
   any other block is checkpointed by the stack, its parameters passed in;
 - init: normal(0.02) for kernels and the token embedding, residual
   projections (``out``, ``down``) × (2·n_layers)^-0.5, ``pos_emb``
-  normal(0.01), zero biases, unit LayerNorm scales.
+  normal(0.01), zero biases, unit LayerNorm scales;
+- tensor parallelism (``tp``, Megatron's layout): when the trainer has split
+  a weight over a ``tp`` group (a ``DTensor`` with a ``Shard`` on the mesh
+  dimension ``tp``, ``core/sharding.py``), the layers compute on the
+  rank's block (``to_local()``, whose backward hands the gradient back
+  with the same placement) and place the collectives themselves
+  (``core/mesh.py``): q, k, v and ``up`` are column-parallel, their input
+  through ``copy_to_tp``; ``out`` and ``down`` row-parallel, their product
+  through ``reduce_from_tp`` before the bias, which every rank holds whole.
+  A block launches two all-reduces forward and two backward (and the
+  recompute of ``remat`` reruns the forward's two). Attention runs on the
+  rank's heads, ``n_heads / tp`` of them. The token embedding and the tied
+  head are vocab-parallel: the lookup takes the ids of the rank's slice of
+  the vocab (zeros elsewhere) and sums over ``tp``; the head gives the
+  logits of that slice, returned as a ``DTensor`` split on the vocab, which
+  ``ops/vocab_parallel.py`` reduces over.
 
 Blocks are an ``nn.ModuleList``; the JAX package stacks them on a leading
 ``[n_layers]`` axis (``nn.scan``), and ``easydl_tpu_torch/convert.py`` maps
@@ -37,14 +52,20 @@ from __future__ import annotations
 from dataclasses import dataclass
 from functools import partial
 
+from typing import Optional
+
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 from torch.distributed.fsdp import FSDPModule
+from torch.distributed.tensor import DTensor, Shard
 from torch.func import functional_call
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from easydl_tpu_torch.core.mesh import copy_to_tp, reduce_from_tp
+from easydl_tpu_torch.core.sharding import tp_group_of
 from easydl_tpu_torch.ops import multihead_attention
 
 LN_EPS = 1e-6
@@ -137,9 +158,25 @@ class LayerNorm(nn.Module):
         return (y + self.bias.float()).to(self.dtype)
 
 
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """This rank's block of a parameter split over ``tp``, or the parameter."""
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
 def _dense(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
-    """flax DenseGeneral with ``dtype=``: input, kernel and bias in ``dtype``."""
-    return F.linear(x.to(dtype), layer.weight.to(dtype), layer.bias.to(dtype))
+    """flax DenseGeneral with ``dtype=``: input, kernel and bias in ``dtype``
+    (column-parallel under ``tp``: the rank's block of outputs)."""
+    return F.linear(x.to(dtype), _local(layer.weight).to(dtype), _local(layer.bias).to(dtype))
+
+
+def _row_dense(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype,
+               group: Optional[dist.ProcessGroup]) -> torch.Tensor:
+    """:func:`_dense` of a row-parallel layer: the rank's inputs times its
+    block of the kernel, summed over ``group``, then the whole bias."""
+    if group is None:
+        return _dense(x, layer, dtype)
+    part = F.linear(x.to(dtype), _local(layer.weight).to(dtype))
+    return reduce_from_tp(part, group) + layer.bias.to(dtype)
 
 
 class Block(nn.Module):
@@ -170,16 +207,17 @@ class Block(nn.Module):
         cfg = self.cfg
         dt = cfg.torch_dtype
         b, s, _ = x.shape
-        heads = (b, s, cfg.n_heads, cfg.head_dim)
-        h = self.ln_attn(x)
+        group = tp_group_of(self.q.weight)
+        heads = (b, s, -1, cfg.head_dim)  # this rank's heads under tp
+        h = copy_to_tp(self.ln_attn(x), group)
         q = _dense(h, self.q, dt).view(heads)
         k = _dense(h, self.k, dt).view(heads)
         v = _dense(h, self.v, dt).view(heads)
         attn = multihead_attention(q, k, v, causal=cfg.causal, impl=cfg.attention_impl)
-        x = x + _dense(attn.reshape(b, s, cfg.d_model), self.out, dt)
-        h = self.ln_mlp(x)
+        x = x + _row_dense(attn.reshape(b, s, -1), self.out, dt, group)
+        h = copy_to_tp(self.ln_mlp(x), group)
         h = F.gelu(_dense(h, self.up, dt), approximate="tanh")
-        return x + _dense(h, self.down, dt)
+        return x + _row_dense(h, self.down, dt, group)
 
 
 class Transformer(nn.Module):
@@ -213,13 +251,16 @@ class Transformer(nn.Module):
         self.ln_f.bias.zero_()
 
     def forward(self, tokens: torch.Tensor, return_hidden: bool = False) -> torch.Tensor:
-        """Logits ``[B, S, vocab]``, or the post-``ln_f`` hidden states
-        ``[B, S, d_model]`` with ``return_hidden=True``."""
+        """Logits ``[B, S, vocab]`` (under ``tp`` a ``DTensor`` split on the
+        vocab), or the post-``ln_f`` hidden states ``[B, S, d_model]`` with
+        ``return_hidden=True``."""
         cfg = self.cfg
         dt = cfg.torch_dtype
-        emb = self.tok_emb.weight.to(dt)
+        weight = self.tok_emb.weight
+        group = tp_group_of(weight)
+        emb = _local(weight).to(dt)
         seq = tokens.shape[1]
-        x = F.embedding(tokens, emb) + self.pos_emb.to(dt)[None, :seq]
+        x = _embed(tokens, emb, group) + self.pos_emb.to(dt)[None, :seq]
         for blk in self.blocks:
             if cfg.remat and not isinstance(blk, FSDPModule):
                 names, params = zip(*blk.named_parameters())
@@ -229,4 +270,23 @@ class Transformer(nn.Module):
         x = self.ln_f(x)
         if return_hidden:
             return x
-        return F.linear(x, emb)
+        if group is None:
+            return F.linear(x, emb)
+        logits = F.linear(copy_to_tp(x, group), emb)
+        return DTensor.from_local(logits, weight.device_mesh,
+                                  [Shard(logits.dim() - 1) if isinstance(pl, Shard) else pl
+                                   for pl in weight.placements], run_check=False)
+
+
+def _embed(tokens: torch.Tensor, emb: torch.Tensor,
+           group: Optional[dist.ProcessGroup]) -> torch.Tensor:
+    """The rows of ``emb`` for ``tokens``; under ``tp`` ``emb`` is the rank's
+    slice of the vocab: the ids outside it look up zeros, and the ranks'
+    lookups are summed (one of them holds each id's row)."""
+    if group is None:
+        return F.embedding(tokens, emb)
+    start = dist.get_rank(group) * emb.shape[0]
+    local = tokens - start
+    inside = (local >= 0) & (local < emb.shape[0])
+    rows = F.embedding(local.clamp(0, emb.shape[0] - 1), emb)
+    return reduce_from_tp(rows.masked_fill(~inside[..., None], 0), group)

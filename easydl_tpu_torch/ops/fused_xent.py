@@ -18,6 +18,12 @@ product of two bf16 values is exact in f32, so the sums are the same f32
 sums, computed as an f32 product (on the GPU, an f32 GEMM, not a tensor-core
 bf16 one). The backward of the upcast matches JAX's transpose rule as well:
 an f32 product, then rounded to the operand's dtype.
+
+Under ``tp`` the head is the tied embedding split on the vocab (a
+``DTensor``): each rank takes its slice's ``[B, chunk, V/tp]`` logits and
+the loss reduces over the ranks (``ops/vocab_parallel.py``); the hidden
+states go through ``core.mesh.copy_to_tp`` once, so that their gradient is
+the sum of the ranks' slices'.
 """
 
 from __future__ import annotations
@@ -28,17 +34,18 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from easydl_tpu_torch.core.mesh import batch_sum
+from easydl_tpu_torch.core.mesh import batch_sum, copy_to_tp
+from easydl_tpu_torch.ops.vocab_parallel import shard_cross_entropy, vocab_shard
 
 
 def _chunk_loss(hidden: torch.Tensor, head: torch.Tensor, targets: torch.Tensor,
-                ignore_id: int) -> torch.Tensor:
-    """Sum over the chunk of lse(logits) − logits[target], masked."""
+                ignore_id: int, group=None, start: int = 0) -> torch.Tensor:
+    """Sum over the chunk of lse(logits) − logits[target], masked; under
+    ``tp`` over ``group``'s slices of the vocab, this rank's from ``start``."""
     logits = torch.matmul(hidden.float(), head.float().t())  # [B, C, V] f32
-    lse = torch.logsumexp(logits, dim=-1)
-    tgt = logits.gather(-1, targets.clamp_min(0).long()[..., None])[..., 0]
+    losses = shard_cross_entropy(logits, targets.clamp_min(0), group, start)
     mask = (targets != ignore_id).float()
-    return ((lse - tgt) * mask).sum()
+    return (losses * mask).sum()
 
 
 def fused_softmax_xent(
@@ -53,7 +60,8 @@ def fused_softmax_xent(
 
     Args:
       hidden: ``[B, S, D]`` post-LayerNorm hidden states, any float dtype.
-      head: ``[V, D]`` head in embedding layout (the tied ``tok_emb.weight``).
+      head: ``[V, D]`` head in embedding layout (the tied ``tok_emb.weight``;
+        under ``tp`` a ``DTensor`` split on the vocab).
       targets: ``[B, S]`` int token ids; positions equal to ``ignore_id``
         count in neither the loss nor the denominator.
       chunk_size: sequence positions per chunk; the peak is ``B·chunk·V`` f32.
@@ -69,6 +77,8 @@ def fused_softmax_xent(
     if head.dim() != 2 or head.shape[1] != hidden.shape[2]:
         raise ValueError(f"head must be [V,D] with D={hidden.shape[2]}, "
                          f"got {tuple(head.shape)}")
+    head, group, first = vocab_shard(head, 0)  # this rank's slice of the vocab
+    hidden = copy_to_tp(hidden, group)
     seq = hidden.shape[1]
     chunk_size = min(chunk_size, seq)
     pad = (-seq) % chunk_size
@@ -79,7 +89,8 @@ def fused_softmax_xent(
     for start in range(0, hidden.shape[1], chunk_size):
         h = hidden[:, start:start + chunk_size]
         t = targets[:, start:start + chunk_size]
-        total = total + checkpoint(_chunk_loss, h, head, t, ignore_id, use_reentrant=False)
+        total = total + checkpoint(_chunk_loss, h, head, t, ignore_id, group, first,
+                                   use_reentrant=False)
     total, count = batch_sum(total, (targets != ignore_id).float().sum())
     denom = count.clamp_min(1.0)
     return total / denom, denom

@@ -36,19 +36,19 @@ from unittest import mock
 import torch
 
 from easydl_tpu_torch.ops import fused_xent
+from easydl_tpu_torch.ops.vocab_parallel import shard_cross_entropy
 from easydl_tpu_torch.scripts import gpt345m
 
 CHUNK = 128
 
 
-def bf16_product_chunk_loss(hidden, head, targets, ignore_id):
+def bf16_product_chunk_loss(hidden, head, targets, ignore_id, group=None, start=0):
     """``fused_xent._chunk_loss`` with the head product in the operands'
     dtype: the logits are the f32 sums rounded to bf16."""
     logits = torch.matmul(hidden, head.t()).float()
-    lse = torch.logsumexp(logits, dim=-1)
-    tgt = logits.gather(-1, targets.clamp_min(0).long()[..., None])[..., 0]
+    losses = shard_cross_entropy(logits, targets.clamp_min(0), group, start)
     mask = (targets != ignore_id).float()
-    return ((lse - tgt) * mask).sum()
+    return (losses * mask).sum()
 
 
 def loss_and_grads(model, batch, loss_fn):

@@ -214,21 +214,24 @@ def whole(t):
     """``t`` whole on every rank (every rank calls this together): the shards
     of a sharded tensor all-gathered with the c10d collective, since
     ``DTensor.full_tensor``'s functional collectives crash (SIGSEGV) over
-    gloo on CUDA tensors in torch 2.11."""
+    gloo on CUDA tensors in torch 2.11. A tensor split on several mesh
+    dimensions (``tp`` and ``fsdp``) is gathered cut by cut, the innermost
+    first (``core.jax_state.splits``)."""
     import torch
     import torch.distributed as dist
-    from torch.distributed.tensor import DTensor, Shard
+    from torch.distributed.tensor import DTensor
+
+    from easydl_tpu_torch.core.jax_state import splits
 
     if not isinstance(t, DTensor):
         return t
-    local = t.to_local().detach()
-    shards = [(pl.dim, m) for m, pl in enumerate(t.placements) if isinstance(pl, Shard)]
-    if not shards:
-        return local
-    (dim, m), = shards
-    parts = [torch.empty_like(local) for _ in range(t.device_mesh.size(m))]
-    dist.all_gather(parts, local.contiguous(), group=t.device_mesh.get_group(m))
-    out = torch.cat(parts, dim=dim)
+    out, mesh = t.to_local().detach(), t.device_mesh
+    for dim, cuts in splits(t).items():
+        for axis, parts, _ in reversed(cuts):
+            pieces = [torch.empty_like(out) for _ in range(parts)]
+            dist.all_gather(pieces, out.contiguous(),
+                            group=mesh.get_group(mesh.mesh_dim_names.index(axis)))
+            out = torch.cat(pieces, dim=dim)
     if out.shape != t.shape:
         raise AssertionError(f"uneven shards: {tuple(out.shape)} gathered, {tuple(t.shape)} held")
     return out

@@ -27,23 +27,32 @@ microbatches, each rank its 16/N rows of every batch.
    kernels (device time and count), its kernel time over the untraced
    step, rank 0's FSDP2 ranges. On CUDA it fails unless every rank ran
    NCCL kernels with device time.
-4. :data:`STEPS_F32` steps at f32 compute (the f32 model and kernels), one
+4. Tensor parallelism: the same ``gpt345m.STEPS`` steps on each mesh of
+   :func:`tp_meshes` (fsdp 2 x tp 2 and dp 2 x tp 2 on four cards): each
+   rank takes its batch coordinate's rows, the ranks of a ``tp`` group the
+   same ones; losses within :data:`LOSS_ABS` of the one process's, the
+   parameters within :data:`PARAM_REL`, every flash kernel once a layer and
+   microbatch on each rank; one traced step's NCCL kernels by rank (the
+   ``tp`` all-reduces among them).
+5. :data:`STEPS_F32` steps at f32 compute (the f32 model and kernels), one
    process against the mesh: the losses within :data:`LOSS_ABS`; the
    parameter gap is printed. It tells bf16 rounding from a fault of the
    NCCL path.
-5. The elastic worker resized across NCCL (``elastic/worker.py``, through
+6. The elastic worker resized across NCCL, once for each pair of
+   :func:`resizes` (the ``tp`` pair where four divide the cards) (``elastic/worker.py``, through
    ``scripts/instrumented_worker.py``), on token shards of seeded ids
    (``data_dir``): two agents of N/2 ranks each (their cards set by
    ``CUDA_VISIBLE_DEVICES``, each its own host chunk cache, as two hosts
-   have) at dp N/2 x fsdp 2, SIGUSR1 to the second agent's worker alone;
-   both must quiesce at one step. Then the first agent alone, N/2 ranks at
-   dp N/2, restores that step by reshard (every tensor and count
+   have) at dp N/2 x fsdp 2 (or fsdp 2 x tp 2), SIGUSR1 to the second
+   agent's worker alone; both must quiesce at one step. Then the first
+   agent alone, N/2 ranks at dp N/2 (or tp 2), restores that step by
+   reshard (every tensor and count
    bit-equal, sha256, to the state saved) and trains to step
    :data:`RESIZE_STEPS` and ``DONE``, losing no step; every rank launches
    each kernel once a layer, microbatch and step. The data cursor is the
    agents' (world 2, 8 rows) at the quiesce and rescales onto one agent
    (16 rows) at the same global position: global rank 0's rows of every
-   step are an uninterrupted reader's. Each restoring rank counts the
+   step (its ``tp`` group's share) are an uninterrupted reader's. Each restoring rank counts the
    chunks it read from its host's cache and from storage: from storage
    only what the first agent's ranks did not write.
 
@@ -76,6 +85,7 @@ from easydl_tpu_torch.models.gpt import SIZES
 from easydl_tpu_torch.models.registry import get_model
 from easydl_tpu_torch.ops import flash_attention as fa
 from easydl_tpu_torch.scripts import gpt345m
+from easydl_tpu_torch.scripts.instrumented_worker import whole
 
 LOSS_ABS = 2e-3   # chip_smoke.DIST_LOSS_ABS
 PARAM_REL = 2e-3  # chip_smoke.DIST_PARAM_REL
@@ -84,6 +94,7 @@ FSDP = 2
 CPU_RANKS = 4  # the rehearsal's
 STEPS_F32 = 2
 RESIZE_STEPS, RESIZE_QUIESCE_AT = 6, 2
+
 RESIZE_DEADLINE_S = 300  # a generation of the resize, from its start to its exit
 F32_CONFIG = TrainConfig(global_batch=gpt345m.GLOBAL_BATCH, grad_accum=gpt345m.MICROBATCHES,
                          compute_dtype=torch.float32)
@@ -130,7 +141,7 @@ def param_rel(state, ref: dict, rank: int) -> float:
     from one process's ``ref``, on rank 0 (None on the others)."""
     diff = norm = 0.0
     for name, p in state.model.named_parameters():
-        full = p.full_tensor().detach()
+        full = whole(p)
         if rank == 0:
             diff += (full.float() - ref[name].float()).square().sum().item()
             norm += ref[name].float().square().sum().item()
@@ -163,6 +174,24 @@ def profiled(trainer, state, batch, device: torch.device) -> dict:
     return {"kernel_ms": sum(ms for _, ms, _ in kernels),
             "nccl": [[n[:90], ms, c] for n, ms, c in sorted(nccl, key=lambda k: -k[1])],
             "fsdp_host_ms": fsdp}
+
+
+def tp_meshes(world: int) -> list:
+    """The tensor-parallel meshes of ``world`` ranks: fsdp 2 x tp 2 and
+    dp x tp 2 (dp filling the world), where four divide it."""
+    if world % 4:
+        return []
+    return [{"dp": world // 4, "fsdp": 2, "tp": 2}, {"dp": world // 2, "tp": 2}]
+
+
+def resizes(world: int) -> dict:
+    """The resizes, by name: (generation 1's mesh, generation 2's), two
+    agents of ``world / 2`` ranks, then the first alone; the ``tp`` one
+    where four divide the world."""
+    out = {"fsdp": (f"dp={world // FSDP},fsdp={FSDP}", f"dp={world // 2}")}
+    if tp_meshes(world):
+        out["tp"] = (f"dp={world // 4},fsdp=2,tp=2", f"dp={world // 4},tp=2")
+    return out
 
 
 def rank_main(rank: int, work: Path) -> int:
@@ -219,9 +248,33 @@ def rank_main(rank: int, work: Path) -> int:
     batch = next(data)
     prof = profiled(trainer, state, {k: v[rows] for k, v in batch.items()}, device)
     mesh_shape = list(trainer.batch_mesh.shape)
-    del state, trainer, refs
-    if device.type == "cuda":
-        torch.cuda.empty_cache()
+    del state, trainer
+
+    tp = {}  # the tensor-parallel meshes, against the same reference
+    for spec_tp in tp_meshes(world):
+        trainer = gpt345m.trainer(bundle, device=device, mesh_spec=MeshSpec(**spec_tp))
+        state = trainer.init_state()
+        share = gpt345m.GLOBAL_BATCH // trainer.ranks
+        tp_rows = slice(trainer.rank * share, (trainer.rank + 1) * share)
+        data = iter(bundle.make_data(gpt345m.GLOBAL_BATCH, seed=0))
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(device)
+        fa.reset_launches()
+        tp_losses, _, tp_step_s = train(trainer, state, data, tp_rows)
+        reading = {"losses": tp_losses, "step_s": tp_step_s, "launches": dict(fa.launches),
+                   "peak_gib": torch.cuda.max_memory_allocated(device) / 2**30
+                   if device.type == "cuda" else None,
+                   "param_rel": param_rel(state, refs.get(gpt345m.STEPS), rank)}
+        batch = next(data)
+        reading["profile"] = profiled(trainer, state, {k: v[tp_rows] for k, v in batch.items()},
+                                      device)
+        by_rank = [None] * world
+        dist.all_gather_object(by_rank, reading)
+        tp[MeshSpec(**spec_tp).key()] = by_rank
+        del state, trainer
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    del refs
 
     # the same at f32 compute (the f32 kernels, no bf16 rounding): does the
     # NCCL path itself add error? (ROADMAP Queue C 1)
@@ -252,6 +305,7 @@ def rank_main(rank: int, work: Path) -> int:
     if rank == 0:
         out.update({"mesh": mesh_shape, "ranks": ranks,
                     "param_rel": rel[gpt345m.STEPS], "param_rel_by_step": rel, "f32": f32,
+                    "tp": tp,
                     "backend": dist.get_backend()})
         (work / "result.json").write_text(json.dumps(out))
     dist.barrier()
@@ -287,18 +341,21 @@ def run_ranks(work: Path, world: int) -> None:
         raise SystemExit(f"ranks exited {rcs} (killed at the {DEADLINE_S}s deadline if -9)")
 
 
-def resize(work: Path, world: int, device: str, size: str) -> dict:
+def resize(work: Path, world: int, device: str, size: str, pair: tuple) -> dict:
     """The elastic worker resized across NCCL (see the module docstring):
-    generation 1 is two agents of ``world / 2`` ranks each at dp x fsdp
-    :data:`FSDP`, quiesced by SIGUSR1 to the second agent's worker alone;
-    generation 2 is the first agent alone at dp ``world / 2``, restoring by
-    reshard and training to ``DONE``. Returns the readings; raises on a
-    failed check."""
+    generation 1 is two agents of ``world / 2`` ranks each at ``pair[0]``
+    (dp x fsdp :data:`FSDP`, or fsdp 2 x tp 2), quiesced by SIGUSR1 to the
+    second agent's worker alone; generation 2 is the first agent alone at
+    ``pair[1]`` (dp ``world / 2``, or tp 2), restoring by reshard and
+    training to ``DONE``. Returns the readings; raises on a failed check."""
+    from easydl_tpu_torch.core.mesh import MeshSpec
     from easydl_tpu_torch.scripts import instrumented_worker as iw
 
     from easydl_tpu_torch.data import TokenFileDataset, write_token_shards
 
     half = world // 2
+    meshes = {g: MeshSpec.parse(pair[g - 1]).key() for g in (1, 2)}
+    tps = {g: MeshSpec.parse(meshes[g]).tp for g in (1, 2)}
     kwargs = model_kwargs(size)
     window, rows = kwargs["seq_len"] + 1, gpt345m.GLOBAL_BATCH
     write_token_shards(np.random.default_rng(0).integers(0, kwargs["vocab"],
@@ -325,7 +382,7 @@ def resize(work: Path, world: int, device: str, size: str) -> dict:
 
     t0 = time.perf_counter()
     try:
-        for gen, agents, mesh in ((1, 2, f"dp={world // FSDP},fsdp={FSDP}"), (2, 1, f"dp={half}")):
+        for gen, agents, mesh in ((1, 2, meshes[1]), (2, 1, meshes[2])):
             iw.run_generation(counts, work, gen=gen, agents=agents, args=args,
                               env=lambda a: env(a, mesh), deadline_s=RESIZE_DEADLINE_S,
                               quiesce_at=RESIZE_QUIESCE_AT if gen == 1 else None)
@@ -355,8 +412,8 @@ def resize(work: Path, world: int, device: str, size: str) -> dict:
                         f"{metrics['a1'][-1]['step']}")
     if [r["step"] for r in gen2] != list(range(q + 1, RESIZE_STEPS + 1)):
         failures.append(f"generation 2 trained {[r['step'] for r in gen2]} after step {q}")
-    if {(r["world_size"], r["mesh"]) for r in gen1} != {(world, f"dp={world // FSDP},fsdp={FSDP}")} \
-            or {(r["world_size"], r["mesh"]) for r in gen2} != {(half, f"dp={half}")}:
+    if {(r["world_size"], r["mesh"]) for r in gen1} != {(world, meshes[1])} \
+            or {(r["world_size"], r["mesh"]) for r in gen2} != {(half, meshes[2])}:
         failures.append("world sizes or meshes: "
                         f"{sorted({(r['world_size'], r['mesh']) for r in gen1 + gen2})}")
     if (work / "DONE").read_text() != str(RESIZE_STEPS):
@@ -390,7 +447,8 @@ def resize(work: Path, world: int, device: str, size: str) -> dict:
     readers = {1: iter(TokenFileDataset(tokens, batch_size=rows // 2, seq_len=seq, rank=0,
                                         world=2)),
                2: iter(resumed)}
-    want_rows = {1: rows // 2 // half, 2: rows // half}
+    # global rank 0's: its agent's rows over the agent's batch ranks
+    want_rows = {1: rows // 2 // (half // tps[1]), 2: rows // (half // tps[2])}
     got = {g: [r for r in iw.read_jsonl(counts / f"batches-g{g}.jsonl") if not r["preflight"]]
            for g in (1, 2)}
     for g in (1, 2):
@@ -406,7 +464,7 @@ def resize(work: Path, world: int, device: str, size: str) -> dict:
             or (not moved and any(r["storage"] for r in reads.values())):
         failures.append(f"restore chunk reads {reads}, {len(moved)} chunks only the second "
                         "agent's host holds")
-    out = {"quiesce_step": q, "losses": [r["loss"] for r in gen1 + gen2],
+    out = {"meshes": meshes, "quiesce_step": q, "losses": [r["loss"] for r in gen1 + gen2],
            "reads": reads, "moved_chunks": len(moved),
            "step_s": [r["step_time_s"] for r in gen1 + gen2],
            "hashes": len(iw.hashed_state(saved[0])) - 1 if saved else 0,
@@ -446,8 +504,10 @@ def main(argv=None) -> int:
         run_ranks(work, world)
         seconds = time.perf_counter() - t0
         res = json.loads((work / "result.json").read_text())
-    with tempfile.TemporaryDirectory(prefix="nccl_cards_resize_") as tmp:
-        elastic = resize(Path(tmp), world, args.device, args.size)
+    elastic = {}
+    for kind, pair in resizes(world).items():
+        with tempfile.TemporaryDirectory(prefix=f"nccl_cards_resize_{kind}_") as tmp:
+            elastic[kind] = resize(Path(tmp), world, args.device, args.size, pair)
 
     one, ranks = res["one"], res["ranks"]
     r0 = ranks[0]
@@ -470,14 +530,15 @@ def main(argv=None) -> int:
         f"(one process {f32['one_losses']}, worst |diff| {worst32:.3g})")
     if worst32 > LOSS_ABS:
         failures.append(f"f32 losses {worst32:.3g} from one process's")
-    log(f"elastic resize: {world} ranks (2 agents, dp {world // FSDP} x fsdp {FSDP}) quiesced at "
-        f"step {elastic['quiesce_step']} on SIGUSR1 to one agent; {world // 2} ranks (dp "
-        f"{world // 2}) restored it ({elastic['hashes']} tensors and counts bit-equal to the "
-        f"saved ones) and trained to step {RESIZE_STEPS}; losses {elastic['losses']}, step "
-        f"seconds {elastic['step_s']}; switch (s from quiesce_ckpt_begin): {elastic['switch']}; "
-        f"hashing (not the worker's own time) {elastic['hash_s']}; {elastic['seconds']:.1f}s "
-        f"for both generations; restore chunk reads by rank {elastic['reads']}, chunks only the "
-        f"second agent's host held {elastic['moved_chunks']}")
+    for kind, e in elastic.items():
+        log(f"elastic resize ({kind}): {world} ranks (2 agents, {e['meshes'][1]}) quiesced at "
+            f"step {e['quiesce_step']} on SIGUSR1 to one agent; {world // 2} ranks "
+            f"({e['meshes'][2]}) restored it ({e['hashes']} tensors and counts bit-equal to the "
+            f"saved ones) and trained to step {RESIZE_STEPS}; losses {e['losses']}, step "
+            f"seconds {e['step_s']}; switch (s from quiesce_ckpt_begin): {e['switch']}; "
+            f"hashing (not the worker's own time) {e['hash_s']}; {e['seconds']:.1f}s for both "
+            f"generations; restore chunk reads by rank {e['reads']}, chunks only the second "
+            f"agent's host held {e['moved_chunks']}")
     want = gpt345m.MICROBATCHES * gpt345m.STEPS * SIZES[args.size][0]
     for r in ranks:
         p = r["profile"]
@@ -495,6 +556,32 @@ def main(argv=None) -> int:
             failures.append(f"rank {r['rank']} launches {r['launches']}, want {want} of each")
         if cuda and not nccl_ms > 0:
             failures.append(f"rank {r['rank']}: no NCCL kernel with device time")
+    for key, by_rank in res["tp"].items():
+        losses = by_rank[0]["losses"]
+        worst_tp = max(abs(a - b) for a, b in zip(losses, one["losses"]))
+        log(f"mesh {key}: losses {losses} (one process, worst |diff| {worst_tp:.3g}, bound "
+            f"{LOSS_ABS}); parameters vs one process relative L2 {by_rank[0]['param_rel']:.4g} "
+            f"(bound {PARAM_REL})")
+        if worst_tp > LOSS_ABS:
+            failures.append(f"{key}: losses {worst_tp:.3g} from one process's")
+        if not by_rank[0]["param_rel"] <= PARAM_REL:
+            failures.append(f"{key}: parameters {by_rank[0]['param_rel']:.4g} from one process's")
+        for r, reading in enumerate(by_rank):
+            p = reading["profile"]
+            step = sum(reading["step_s"][1:]) / len(reading["step_s"][1:])
+            nccl_ms = sum(ms for _, ms, _ in p["nccl"])
+            log(f"  {key} rank {r}: step {step:.4f}s ({reading['step_s']}), peak "
+                f"{reading['peak_gib'] if reading['peak_gib'] is None else round(reading['peak_gib'], 2)}"
+                f" GiB, launches {reading['launches']}; traced step: kernels "
+                f"{p['kernel_ms']:.1f} ms, NCCL kernels {nccl_ms:.3f} ms in "
+                f"{sum(c for *_, c in p['nccl'])} launches: "
+                + "; ".join(f"{n} {ms:.3f} ms x{c}" for n, ms, c in p["nccl"][:6]))
+            if reading["losses"] != losses:
+                failures.append(f"{key} rank {r} reports losses {reading['losses']}")
+            if cuda and reading["launches"] != fa.expected_launches(bf16=want):
+                failures.append(f"{key} rank {r} launches {reading['launches']}, want {want}")
+            if cuda and not nccl_ms > 0:
+                failures.append(f"{key} rank {r}: no NCCL kernel with device time")
     log("rank 0 FSDP2 host ms (traced, with what they call): " + "; ".join(
         f"{n} {ms:.1f}" for n, ms in sorted(r0["profile"]["fsdp_host_ms"].items(),
                                             key=lambda kv: -kv[1])))
@@ -512,8 +599,16 @@ def main(argv=None) -> int:
                                    for r in ranks],
                "peak_gib_by_rank": [r["peak_gib"] for r in ranks],
                "param_rel_by_step": res["param_rel_by_step"], "f32_param_rel": f32["param_rel"],
-               "resize": {k: elastic[k] for k in ("quiesce_step", "losses", "hashes", "seconds",
-                                                  "reads", "moved_chunks")}}
+               "tp": {key: {"losses": by_rank[0]["losses"], "param_rel": by_rank[0]["param_rel"],
+                            "step_s": max(sum(r["step_s"][1:]) / len(r["step_s"][1:])
+                                          for r in by_rank),
+                            "peak_gib_by_rank": [r["peak_gib"] for r in by_rank],
+                            "nccl_ms_by_rank": [sum(ms for _, ms, _ in r["profile"]["nccl"])
+                                                for r in by_rank]}
+                      for key, by_rank in res["tp"].items()},
+               "resize": {kind: {k: e[k] for k in ("meshes", "quiesce_step", "losses", "hashes",
+                                                   "seconds", "reads", "moved_chunks")}
+                          for kind, e in elastic.items()}}
     print(json.dumps(summary), flush=True)
     if failures:
         print("FAILED: " + "; ".join(failures), file=sys.stderr)

@@ -164,8 +164,8 @@ def test_rank_and_world_come_from_the_environment(monkeypatch):
         port_mesh.init_distributed("cpu")
 
 
-@pytest.mark.parametrize("spec,error", [(dict(tp=2), "ROADMAP.md Queue A 9b"),
-                                        (dict(pp=2), "ROADMAP.md Queue A 14"),
+@pytest.mark.parametrize("spec,error", [(dict(tp=2), "param_axes"),  # tp passes the axes
+                                        (dict(pp=2), "ROADMAP.md Queue A 7"),
                                         (dict(dp=1), "param_axes")])
 def test_trainer_refuses_a_mesh_it_cannot_shard(one_rank_group, spec, error):
     import functools
@@ -201,3 +201,17 @@ def test_one_rank_mesh_trains_as_one_device(one_rank_group):
         runs.append([float(trainer.train_step(state, next(data))[1]["loss"])
                      for _ in range(2)])
     np.testing.assert_allclose(runs[1], runs[0], rtol=1e-6, atol=0)
+
+
+def test_tp_collectives_are_the_identity_without_a_group(one_rank_group):
+    """No tp group, or one of a single rank: copy_to_tp and reduce_from_tp
+    pass values and gradients through unchanged."""
+    x = torch.randn(3, 4, requires_grad=True)
+    for group in (None, dist.group.WORLD):
+        for fn in (port_mesh.copy_to_tp, port_mesh.reduce_from_tp):
+            y = fn(x, group)
+            assert y is x
+    mesh = port_mesh.build_mesh(port_mesh.MeshSpec(), "cpu")
+    assert port_mesh.batch_coordinate(mesh) == 0
+    assert port_mesh.batch_ranks(mesh) == [[0]]
+    assert port_mesh.batch_process_group(mesh) is dist.group.WORLD

@@ -229,6 +229,19 @@ def test_bench_rehearses_on_the_cpu():
     assert abs(out["loss"] - np.log(256)) < 1.0
 
 
+def test_bench_mesh_rehearses_under_torch_distributed_run():
+    r = _run(["-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "4", "-m",
+              "easydl_tpu_torch.scripts.bench", "--device", "cpu", "--size", "test",
+              "--mesh", "dp=2,tp=2"])
+    assert r.returncode == 0, r.stdout[-2000:] + r.stderr[-3000:]
+    lines = [line for line in r.stdout.splitlines() if line.startswith("{")]
+    assert len(lines) == 1  # rank 0 prints
+    out = json.loads(lines[0])
+    assert out["mesh"] == "dp=2,tp=2" and out["n_chips"] == 4
+    assert out["unit"] == "samples/sec/chip" and out["value"] > 0
+    assert abs(out["loss"] - np.log(256)) < 1.0
+
+
 def test_multi_card_script_rehearses_on_four_cpu_ranks():
     r = _run(["-m", "easydl_tpu_torch.scripts.nccl_cards", "--device", "cpu", "--size", "test"])
     assert r.returncode == 0, r.stdout[-2000:] + r.stderr[-3000:]
@@ -236,10 +249,16 @@ def test_multi_card_script_rehearses_on_four_cpu_ranks():
     assert out["ok"] and out["backend"] == "gloo" and out["mesh"] == [2, 2]
     assert out["param_rel"] <= 2e-3 and len(out["losses"]) == 4
     assert out["f32_param_rel"] <= 1e-5  # at f32 compute the ranks match one process
-    assert out["resize"]["hashes"] > 0 and len(out["resize"]["losses"]) == 6
-    # two restoring ranks, each reading chunks from its host's cache
-    assert len(out["resize"]["reads"]) == 2
-    assert all(r["cache"] > 0 for r in out["resize"]["reads"].values())
+    # the tensor-parallel meshes against the same one process
+    assert set(out["tp"]) == {"fsdp=2,tp=2", "dp=2,tp=2"}
+    assert all(t["param_rel"] <= 2e-3 and len(t["losses"]) == 4 for t in out["tp"].values())
+    # both resizes; two restoring ranks, each reading chunks from its host's cache
+    assert {k: e["meshes"] for k, e in out["resize"].items()} == {
+        "fsdp": {"1": "dp=2,fsdp=2", "2": "dp=2"}, "tp": {"1": "fsdp=2,tp=2", "2": "tp=2"}}
+    for e in out["resize"].values():
+        assert e["hashes"] > 0 and len(e["losses"]) == 6
+        assert len(e["reads"]) == 2
+        assert all(r["cache"] > 0 for r in e["reads"].values())
 
 
 @pytest.mark.parametrize("args,env", [

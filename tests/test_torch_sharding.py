@@ -7,9 +7,15 @@ the JAX package's:
   ``Trainer.state_shardings`` puts on ``fsdp`` on a dp 2 x fsdp 2 mesh,
   carried through ``convert.py``'s layout; a parameter that JAX keeps
   whole (no ``fsdp`` in its spec) is sharded on dim 0;
-- a mesh with ``tp``, ``sp``, ``ep`` or ``pp`` > 1 raises, naming the
-  ROADMAP item that brings it.
+- the dimension that the port splits over ``tp`` is the one that the JAX
+  ``Trainer.state_shardings`` puts on ``tp`` on a dp 2 x tp 2 mesh,
+  carried through ``convert.py``'s layout by whole heads;
+- a mesh with ``sp``, ``ep`` or ``pp`` > 1 raises, naming the ROADMAP item
+  that brings it; ``tp`` passes where it divides the heads, the hidden
+  units and the vocab.
 """
+
+import functools
 
 import pytest
 
@@ -48,17 +54,18 @@ def test_every_gpt_parameter_has_its_axes():
         sharding.gpt_param_axes("blocks.0.moe.weight")
 
 
-def jax_fsdp_dims(eight_devices):
-    """JAX leaf path -> the dim its state sharding puts on fsdp (or None)."""
+def jax_fsdp_dims(eight_devices, axis="fsdp"):
+    """JAX leaf path -> the dim its state sharding puts on ``axis`` (or
+    None), on a mesh of 2 over ``axis`` and dp 2."""
     bundle = jax_get_model("gpt", size="test", seq_len=SEQ, vocab=VOCAB)
     trainer = JaxTrainer(init_fn=bundle.init_fn, loss_fn=bundle.loss_fn,
                          optimizer=optax.adamw(1e-3), config=JaxTrainConfig(global_batch=8),
-                         mesh_spec=JaxMeshSpec(dp=2, fsdp=2))
+                         mesh_spec=JaxMeshSpec(dp=2, **{axis: 2}))
     out = {}
     for path, shd in jax.tree_util.tree_flatten_with_path(trainer.state_shardings().params)[0]:
         key = jax.tree_util.keystr(path).removesuffix(".value")
         dims = [d for d, axes in enumerate(shd.spec)
-                if axes == "fsdp" or (isinstance(axes, tuple) and "fsdp" in axes)]
+                if axes == axis or (isinstance(axes, tuple) and axis in axes)]
         out[key] = dims[0] if dims else None
     return out
 
@@ -124,12 +131,64 @@ def test_shard_placement_fn_gives_fsdp2_the_dims():
     assert got["blocks.0.q.bias"] == Shard(0)  # replicated by the rules: dim 0 for FSDP2
 
 
-@pytest.mark.parametrize("axis,item", [("tp", "Queue A 9b"), ("sp", "Queue A 14"),
-                                       ("ep", "Queue A 14"), ("pp", "Queue A 14")])
+@pytest.mark.parametrize("axis,item", [("sp", "Queue A 7"), ("ep", "Queue A 7"),
+                                       ("pp", "Queue A 7")])
 def test_unported_axes_raise_naming_their_roadmap_item(axis, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item}"):
         sharding.check_mesh(MeshSpec(dp=2, **{axis: 2}))
     sharding.check_mesh(MeshSpec(dp=2, fsdp=4))
+
+
+def test_tp_passes_where_it_divides_the_model():
+    cfg = port_model().cfg  # 4 heads, d_ff 512, vocab 256
+    for spec in (MeshSpec(tp=2), MeshSpec(fsdp=2, tp=2), MeshSpec(dp=2, tp=4)):
+        sharding.check_mesh(spec, cfg)
+    with pytest.raises(ValueError, match="tp=8 does not divide n_heads=4"):
+        sharding.check_mesh(MeshSpec(tp=8), cfg)
+    bundle = get_model("gpt", size="test", seq_len=SEQ, vocab=VOCAB + 2)
+    with pytest.raises(ValueError, match="does not divide vocab=258"):
+        sharding.check_mesh(MeshSpec(tp=4), bundle.init_fn(0, "cpu").cfg)
+
+
+def test_tp_dims_match_jax_state_shardings(eight_devices):
+    """Halve each parameter's port tp dim (tp 2), carry the shapes through
+    ``convert.to_jax_tree`` (by head_dim: a block of whole heads): the JAX
+    dim that halves is the one the JAX package shards on tp; the parameters
+    the rules keep whole over tp are the JAX leaves with no tp dim."""
+    want = jax_fsdp_dims(eight_devices, axis="tp")
+    params = dict(port_model().named_parameters())
+    head_dim = params["blocks.0.q.weight"].shape[0] // N_HEADS
+    to_jax = functools.partial(convert.to_jax_tree, n_heads=N_HEADS, head_dim=head_dim)
+    full = dict(leaf_keys(to_jax({n: torch.empty(p.shape, device="meta")
+                                  for n, p in params.items()})))
+    whole = []
+    for name, p in params.items():
+        suffix = name.split(".", 2)[2] if name.startswith("blocks.") else name
+        dim = sharding.tp_dim(sharding.gpt_param_axes(name))
+        if dim is None:
+            whole.append(suffix)
+            continue
+        shapes = {n: torch.empty(q.shape, device="meta") for n, q in params.items()}
+        half = list(p.shape)
+        half[dim] //= 2
+        for other in params:  # every layer's, so that the stacked leaf changes
+            if other == name or (name.startswith("blocks.") and other.startswith("blocks.")
+                                 and other.endswith("." + suffix)):
+                shapes[other] = torch.empty(half, device="meta")
+        split = {k: [d for d, (a, b) in enumerate(zip(s, full[k])) if a != b]
+                 for k, s in leaf_keys(to_jax(shapes))}
+        changed = {k: d for k, d in split.items() if d}
+        assert len(changed) == 1, (name, changed)
+        (key, dims), = changed.items()
+        assert dims == [want[key]], (name, key, dims, want[key])
+    jax_whole = sorted(k for k, d in want.items() if d is None)
+    assert jax_whole == ["['blocks']['down']['bias']", "['blocks']['ln_attn']['bias']",
+                         "['blocks']['ln_attn']['scale']", "['blocks']['ln_mlp']['bias']",
+                         "['blocks']['ln_mlp']['scale']", "['blocks']['out']['bias']",
+                         "['ln_f']['bias']", "['ln_f']['scale']", "['pos_emb']"]
+    assert sorted(set(whole)) == ["down.bias", "ln_attn.bias", "ln_attn.weight", "ln_f.bias",
+                                  "ln_f.weight", "ln_mlp.bias", "ln_mlp.weight", "out.bias",
+                                  "pos_emb"]
 
 
 def test_mesh_axes_follow_the_rules():
@@ -138,3 +197,7 @@ def test_mesh_axes_follow_the_rules():
     assert sharding.mesh_axes(sharding.gpt_param_axes("pos_emb")) == (("sp",), ("fsdp",))
     assert sharding.mesh_axes(sharding.gpt_param_axes("blocks.0.q.bias")) == (("tp",),)
     assert sharding.fsdp_dim(sharding.gpt_param_axes("blocks.0.q.bias")) is None
+    assert sharding.tp_dim(sharding.gpt_param_axes("blocks.0.q.weight")) == 0
+    assert sharding.tp_dim(sharding.gpt_param_axes("blocks.0.out.weight")) == 1
+    assert sharding.tp_dim(sharding.gpt_param_axes("tok_emb.weight")) == 0
+    assert sharding.tp_dim(sharding.gpt_param_axes("blocks.0.down.bias")) is None
