@@ -146,7 +146,7 @@ Phases, each of which fails the run (non-zero exit) on any error:
    (``brain_core.cc``) on this host;
 9. file-backed token data and the worker's recovery paths, phase 8's job
    on ``FILE_TOKENS`` seeded ids (vocab 50304) in two ``tokens-*.npy``
-   shards written by ``data.write_token_shards``, a 5% val split, 9 steps
+   shards written by ``data.write_token_shards``, a 5% val split, 14 steps
    over three generations played by ``instrumented_worker`` (without its
    state hashes, so the worker's own save and restore are timed) as the
    agent: generation 1 cold, SIGUSR1 at step 2; generation 2 promoted from
@@ -155,7 +155,7 @@ Phases, each of which fails the run (non-zero exit) on any error:
    ``FILE_STRAGGLE_S`` a step through the chaos hook, so that it still
    trains when the preflight is ready), SIGUSR1 to generation 2 once the
    preflight is ready, then the go; then the evaluator pod on the workdir.
-   Checks: steps 1-9, none lost or repeated, each generation with one; the
+   Checks: steps 1-14, none lost or repeated, each generation with one; the
    batch of every step bit-equal (sha256) to an uninterrupted
    ``TokenFileDataset``'s; each generation's first loss within
    ``DIST_LOSS_ABS`` of a step in this process from the same state (the
@@ -163,7 +163,7 @@ Phases, each of which fails the run (non-zero exit) on any error:
    and 3 restored every chunk from the host chunk cache and none from
    storage; the kernels launched ``DIST_LAYERS`` x 2 times a step, and the
    preflight's own as many; only generation 2's steps straggled; the pod
-   (``chip_smoke.py --evaluator``, which adds the size) evaluated step 9, its
+   (``chip_smoke.py --evaluator``, which adds the size) evaluated step 14, its
    loss within ``DIST_LOSS_ABS`` of this process's on the val split's first
    batch. Prints each switch by timeline phase (the warm and the preflight
    one beside phase 8's cold one), the restore seconds against phase 8's,
@@ -352,10 +352,41 @@ Phases, each of which fails the run (non-zero exit) on any error:
       first loss equals, bit for bit, the loss this process computes from
       that step's checkpoint and ``ps-ckpt`` on the worker's first batch;
       at the end the pods' rows are bit-equal to the last ``ps-ckpt``;
-15. summary: a ``kernels`` JSON line (with each phase's launches, 7b's,
+15. the serving tier with BASELINE config 5's model, in a process of its
+   own (``chip_smoke.py --serve CARD OUT``): DeepFM's dense tower at the
+   JAX defaults (26 sparse fields, dim 16, 13 dense features, tower (400,
+   400, 400)) scoring on the card (``serve.frontend.make_deepfm_forward``,
+   f32, TF32 off), its rows pulled from two of the port's PS pods (phase
+   14's table spec); no flash kernel on its path, and none in the JAX
+   package's (its scorer is a jitted flax module):
+   a. the forward on the card against the same forward on the CPU, the
+      params given in the JAX layout, on the same pulled rows at 1, 37 and
+      256 rows, within ``SERVE_CPU_REL``, which the CPU's forward on the
+      rows rounded to TF32 must exceed;
+   b. two in-process ``ServeFrontend``s (gRPC, ``HotIdCache`` each) behind
+      the port's ``ServeRouter``: ``SERVE_THREADS`` closed-loop clients,
+      ``SERVE_WARMUP`` then ``SERVE_REQUESTS`` requests of ``SERVE_ROWS``
+      rows (Zipf ids, dense features); prints p50/p99, QPS by replica and
+      for the fleet, sheds, hard errors (none allowed), mean rows a batch,
+      a batch's pull (host clock) and forward (CUDA events, the copies
+      included) ms, the cache's hit ratio, and the card's idle share over
+      ``SERVE_PROFILED`` more requests under the profiler;
+   c. acknowledged pushes to the traffic's hottest ids: each next read
+      through a replica's cache bit-equal to a direct pull;
+   d. v1 and v2 (a perturbed tower) published with ``loop.publish``; a
+      ``ModelVersionWatcher`` builds each forward on its thread and swaps
+      it in: the next batch scores as v2's CPU forward; the ``Rollout``
+      RPC's rollback brings back v1's scores; a v3 with one byte flipped is
+      quarantined unbuilt and v2 served again;
+   e. one ``python -m easydl_tpu_torch.serve --deepfm`` replica on the
+      card (``serve.launch.spawn_replicas``, started with the phase so that
+      its start runs beside 15a-15d) answers ``Infer`` RPCs within
+      ``SERVE_CPU_REL`` of the same-seed forward on the CPU, and on SIGTERM
+      exits 0 and removes its discovery file;
+16. summary: a ``kernels`` JSON line (with each phase's launches, 7b's,
    7d's and 13c's summed over their ranks and runs, 8's, 9's and 14c's over
    their generations; the f32 kernels' rows from phase 10, their launches
-   10b's; phases 11's, 12's and 14's zeros), the card line, then the
+   10b's; phases 11's, 12's, 14's and 15's zeros), the card line, then the
    result line.
 
 Each phase prints its seconds.
@@ -537,16 +568,19 @@ BENCH_DEADLINE_S = 300
 BENCH_STEPS = ["--warmup", "1", "--timed", "1"]
 # Phase 9, file-backed token data and the worker's recovery paths: phase 8's
 # job on FILE_TOKENS seeded ids (vocab 50304, uint16) in two token shards
-# with a 5% val split, FILE_STEPS steps over three generations: the first
+# with a 5% val split, FILE_JOB's total_steps over three generations: the first
 # cold, the second promoted from a warm standby, the third from a preflight
 # started while the second trains. The second generation straggles
 # FILE_STRAGGLE_S a step (the chaos hook, on the card) so that it is still
 # training when the preflight is ready, as under the master, which drains
-# only then.
+# only then. The straggle is a cut for the time limit: from its first step
+# to the preflight's readiness generation 2 trains ~20 s (NVIDIA H100, its
+# 8-core host), 4 steps of 10 s in 9 (steps 5-8 of 9, twice), so at 5 s a
+# step the job has 14 steps and generation 3 still has some to train.
 FILE_TOKENS = 4_200_000
-FILE_JOB = {**WORKER_JOB, "total_steps": 9, "ckpt_interval": -1, "val_fraction": 0.05}
+FILE_JOB = {**WORKER_JOB, "total_steps": 14, "ckpt_interval": -1, "val_fraction": 0.05}
 FILE_QUIESCE_AT = 2  # generation 1 gets SIGUSR1 once its metrics show this step
-FILE_STRAGGLE_S = 10.0
+FILE_STRAGGLE_S = 5.0
 FILE_DEADLINE_S = 240  # each wait of the phase
 # Phase 10, BERT-base masked-LM pretraining (BASELINE config 3): 12 layers,
 # d_model 768, 12 heads of 64, seq 512, vocab 30720, the model in f32 as the
@@ -766,6 +800,33 @@ PS_JOB = {"model": "deepfm", "model_kwargs": {"embedding": "ps", "dim": 16},
 PS_QUIESCE_AT = 2
 PS_GEN_DEADLINE_S = 240  # each generation of 14c, from its start to its exit
 PS_DEADLINE_S = 600  # 14a-14c in their process
+# Phase 15, the serving tier with BASELINE config 5's model: DeepFM's dense
+# tower at the JAX defaults (26 sparse fields, dim 16, 13 dense features,
+# tower (400, 400, 400)) scoring on the card, the rows pulled from PS_TABLE
+# on PS_SHARDS of the port's PS pods. 15b's traffic: SERVE_THREADS
+# closed-loop clients through the port's ServeRouter in front of two
+# in-process ServeFrontends (HotIdCache of SERVE_CACHE_BYTES each, gRPC),
+# SERVE_WARMUP then SERVE_REQUESTS requests of SERVE_ROWS rows, ids drawn
+# Zipf(SERVE_ZIPF) over SERVE_VOCAB from a seed (``scripts/bench_serve.py``'s
+# draw), standard-normal dense features; then SERVE_PROFILED more under the
+# profiler for the card's idle share.
+SERVE_FIELDS, SERVE_DIM, SERVE_DENSE, SERVE_HIDDEN = 26, 16, 13, (400, 400, 400)
+SERVE_VOCAB, SERVE_ZIPF, SERVE_ROWS = 1_000_000, 1.1, 32
+SERVE_THREADS, SERVE_WARMUP, SERVE_REQUESTS, SERVE_PROFILED = 4, 120, 1200, 100
+SERVE_MAX_BATCH, SERVE_MAX_WAIT_MS, SERVE_CACHE_BYTES = 256, 2.0, 64 << 20
+# 15a: the card's forward against the CPU's on the same pulled rows and the
+# same params (given in the JAX layout), at each of SERVE_CHECK_ROWS rows, in
+# relative L2; beside it the CPU's forward on the rows rounded to TF32 (the
+# products' input rounding TF32 would add). The bound sits between the two
+# readings; 15d and 15e hold their scores to it too.
+# On an H100 SXM (700 W) the card read 8.5e-8 to 2.6e-7 and the TF32-rounded
+# rows 1.9e-5 to 4.6e-5; the bound sits 7.6x above the one and 9.6x below
+# the other.
+SERVE_CHECK_ROWS = (1, 37, 256)
+SERVE_CPU_REL = 2e-6
+# 15c: SERVE_PUSHES acknowledged pushes to the SERVE_HOT_IDS hottest ids
+SERVE_HOT_IDS, SERVE_PUSHES = 256, 4
+SERVE_DEADLINE_S = 300  # 15a-15e in their process
 CSRC = "easydl_tpu_torch/ops/csrc/"
 SOURCE = {  # by kernel: fa.launches' names
     "flash_fwd": CSRC + "flash_fwd_sm90.cu",
@@ -4209,6 +4270,484 @@ def ps_phase(card: str) -> dict:
         os.remove(out)
 
 
+# ------------------------------------------------------------------ phase 15
+def serve_requests(n: int, seed: int) -> list:
+    """``n`` requests of SERVE_ROWS rows: (ids, dense), ids Zipf(SERVE_ZIPF)
+    folded into SERVE_VOCAB, as ``scripts/bench_serve.py`` draws them."""
+    rng = np.random.default_rng(seed)
+    return [((rng.zipf(SERVE_ZIPF, SERVE_ROWS * SERVE_FIELDS) % SERVE_VOCAB)
+             .astype(np.int64).reshape(SERVE_ROWS, SERVE_FIELDS),
+             rng.standard_normal((SERVE_ROWS, SERVE_DENSE)).astype(np.float32))
+            for _ in range(n)]
+
+
+def serve_params(seed: int, perturb: float = 0.0) -> dict:
+    """A DeepFM tower's params at phase 15's widths in the JAX layout (the
+    flax ``DeepFMDense`` tree of numpy arrays): the port's init from
+    ``seed``, the wide kernel drawn too (it is zero at init, which would
+    leave the embeddings only FM's term), then, where ``perturb`` is set,
+    the tower's kernels scaled by ``1 + perturb * N(0, 1)`` elementwise
+    (v2 and v3 of 15d: v1's tower perturbed)."""
+    from easydl_tpu_torch import convert
+    from easydl_tpu_torch.models.deepfm import DeepFMConfig, DeepFMDense
+
+    model = DeepFMDense(DeepFMConfig(num_sparse=SERVE_FIELDS, dim=SERVE_DIM,
+                                     num_dense=SERVE_DENSE, hidden=SERVE_HIDDEN))
+    model.init_weights(torch.Generator().manual_seed(seed))
+    tree = convert.deepfm_params_to_jax(
+        {f"dense.{k}": v for k, v in model.state_dict().items()})["dense"]
+    rng = np.random.default_rng(seed)
+    tree["wide"]["kernel"] = (0.05 * rng.standard_normal(tree["wide"]["kernel"].shape)
+                              ).astype(np.float32)
+    if perturb:
+        for name, leaf in tree.items():
+            if name.startswith("deep_"):
+                leaf["kernel"] = (leaf["kernel"] * (
+                    1 + perturb * rng.standard_normal(leaf["kernel"].shape))).astype(np.float32)
+    return tree
+
+
+def serve_forward(params=None, device="cuda"):
+    """``serve.frontend.make_deepfm_forward`` at phase 15's widths."""
+    from easydl_tpu_torch.serve.frontend import make_deepfm_forward
+
+    return make_deepfm_forward(SERVE_FIELDS, SERVE_DIM, SERVE_DENSE, hidden=SERVE_HIDDEN,
+                               max_batch=SERVE_MAX_BATCH, params=params, device=device)
+
+
+def flat_params(tree: dict) -> dict:
+    """A params tree as ``publish_version``'s payload: ``layer.leaf`` -> array."""
+    return {f"{layer}.{leaf}": a for layer, leaves in tree.items() for leaf, a in leaves.items()}
+
+
+def tree_params(arrays: dict) -> dict:
+    """Inverse of :func:`flat_params`: published arrays back into the tree."""
+    tree = {}
+    for key, a in arrays.items():
+        layer, leaf = key.split(".")
+        tree.setdefault(layer, {})[leaf] = a
+    return tree
+
+
+class TimedForward:
+    """A replica's forward, timed with CUDA events (upload and download
+    included) and the host clock; counts the rows of each call."""
+
+    def __init__(self, forward):
+        self.forward = forward
+        self.reset()
+
+    def reset(self):
+        self.ms, self.host_ms, self.rows = [], [], []
+
+    def __call__(self, emb, dense):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        out = self.forward(emb, dense)
+        end.record()
+        end.synchronize()
+        self.host_ms.append((time.perf_counter() - t0) * 1e3)
+        self.ms.append(start.elapsed_time(end))
+        self.rows.append(len(emb))
+        return out
+
+
+class TimedReads:
+    """A replica's read client with each batch's pull timed on the host."""
+
+    def __init__(self, reads):
+        self.reads = reads
+        self.cache = reads.cache
+        self.ms = []
+
+    def pull(self, table, ids):
+        t0 = time.perf_counter()
+        out = self.reads.pull(table, ids)
+        self.ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    def __getattr__(self, name):
+        return getattr(self.reads, name)
+
+
+def serve_scorer(card_line: str, writer, requests: list, params: dict) -> None:
+    """15a (see the module docstring)."""
+    card, cpu = serve_forward(params), serve_forward(params, device="cpu")
+    ids = np.concatenate([r[0] for r in requests])
+    dense = np.concatenate([r[1] for r in requests])
+    emb = writer.pull(PS_TABLE["name"], ids[:max(SERVE_CHECK_ROWS)])
+    sound, rounded = {}, {}
+    for n in SERVE_CHECK_ROWS:
+        got, want = card(emb[:n], dense[:n]), cpu(emb[:n], dense[:n])
+        if got.shape != (n,) or got.dtype != np.float32 or not np.isfinite(got).all():
+            raise AssertionError(f"15a: {n} rows scored {got.shape} {got.dtype}, finite "
+                                 f"{np.isfinite(got).all()}")
+        sound[n] = rel_err(torch.from_numpy(got), torch.from_numpy(want))
+        tf32 = cpu(tf32_round(torch.from_numpy(emb[:n])).numpy(), dense[:n])
+        rounded[n] = rel_err(torch.from_numpy(tf32), torch.from_numpy(want))
+    log(f"15a DeepFM's tower at config 5's widths ({SERVE_FIELDS} fields x {SERVE_DIM}, "
+        f"{SERVE_DENSE} dense, tower {SERVE_HIDDEN}), f32, params in the JAX layout: the card "
+        f"against the CPU on the same pulled rows, relative L2 by rows {sound}; the CPU on the "
+        f"rows rounded to TF32 {rounded}; bound SERVE_CPU_REL {SERVE_CPU_REL:g}; on {card_line}")
+    if max(sound.values()) > SERVE_CPU_REL or min(rounded.values()) <= SERVE_CPU_REL:
+        raise AssertionError(f"15a: the card's scores {sound} and the TF32 reading {rounded} "
+                             f"against the bound {SERVE_CPU_REL:g}")
+
+
+def drive(router, requests: list, threads: int) -> tuple:
+    """Closed loop: ``threads`` clients take the next request until all are
+    sent; returns (latencies in s, results, wall seconds)."""
+    import threading
+
+    nxt = itertools.count()
+    lat, results = [None] * len(requests), [None] * len(requests)
+
+    def client():
+        while (i := next(nxt)) < len(requests):
+            t0 = time.perf_counter()
+            results[i] = router.infer(*requests[i])
+            lat[i] = time.perf_counter() - t0
+
+    workers = [threading.Thread(target=client) for _ in range(threads)]
+    t0 = time.perf_counter()
+    for w in workers:
+        w.start()
+    for w in workers:
+        w.join()
+    return lat, results, time.perf_counter() - t0
+
+
+def idle_share(router, requests: list) -> tuple:
+    """(1 - the card's busy time over the wall time, the busy seconds) of a
+    window that serves ``requests`` through ``router``; (None, 0) where the
+    profiler saw no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, _, wall = drive(router, requests, SERVE_THREADS)
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)) / 1e6
+    return (1 - busy / wall if busy else None), busy
+
+
+def serve_load(card_line: str, work: str, requests: list, params: dict, frontends: list,
+               servers: list) -> np.ndarray:
+    """15b (see the module docstring): appends its two replicas to
+    ``frontends`` and their gRPC servers to ``servers``; returns the
+    traffic's SERVE_HOT_IDS hottest ids."""
+    from easydl_tpu_torch.ps.client import ShardedPsClient
+    from easydl_tpu_torch.ps.read_client import PsReadClient
+    from easydl_tpu_torch.serve import HotIdCache, ServeConfig, ServeFrontend, ServeRouter
+
+    forwards = []
+    for i in range(2):
+        reads = TimedReads(PsReadClient(ShardedPsClient.from_registry(work, PS_SHARDS, wait_s=30),
+                                        cache=HotIdCache(SERVE_CACHE_BYTES)))
+        forwards.append(TimedForward(serve_forward(params)))
+        frontends.append(ServeFrontend(
+            reads, ServeConfig(table=PS_TABLE["name"], fields=SERVE_FIELDS,
+                               dense_dim=SERVE_DENSE, max_batch=SERVE_MAX_BATCH,
+                               max_wait_ms=SERVE_MAX_WAIT_MS),
+            forward=forwards[-1], name=f"serve-{i}"))
+        servers.append(frontends[-1].serve(port=0))
+    router = ServeRouter(addresses={fe.name: sv.address for fe, sv in zip(frontends, servers)})
+    warm, timed = requests[:SERVE_WARMUP], requests[SERVE_WARMUP:SERVE_WARMUP + SERVE_REQUESTS]
+    profiled = requests[SERVE_WARMUP + SERVE_REQUESTS:]
+    try:
+        drive(router, warm, SERVE_THREADS)
+        for fe, fwd in zip(frontends, forwards):
+            fwd.reset()
+            fe.reads.ms.clear()
+        before = [fe.reads.cache.stats() for fe in frontends]
+        counters = dict(router.counters)
+        lat, results, wall = drive(router, timed, SERVE_THREADS)
+        after = [fe.reads.cache.stats() for fe in frontends]
+        routed = {k: router.counters[k] - counters[k] for k in counters}
+        fwd_ms = [m for f in forwards for m in f.ms]
+        host_ms = [m for f in forwards for m in f.host_ms]
+        pull_ms = [m for fe in frontends for m in fe.reads.ms]
+        rows = [sum(f.rows) for f in forwards]
+        batches = sum(len(f.rows) for f in forwards)
+        hits = sum(a["hits"] - b["hits"] for a, b in zip(after, before))
+        misses = sum(a["misses"] - b["misses"] for a, b in zip(after, before))
+        profiled_from = sum(len(f.rows) for f in forwards)
+        idle, busy = idle_share(router, profiled)
+        profiled_batches = sum(len(f.rows) for f in forwards) - profiled_from
+    finally:
+        router.stop()
+    shed = sum(1 for r in results if not r.ok and r.retriable)
+    hard = [r.verdict for r in results if not r.ok and not r.retriable]
+    ms = sorted(x * 1e3 for x in lat)
+    p50, p99 = ms[len(ms) // 2], ms[min(len(ms) - 1, int(0.99 * len(ms)))]
+    log(f"15b {len(timed)} requests of {SERVE_ROWS} rows x {SERVE_FIELDS} ids (Zipf "
+        f"{SERVE_ZIPF} over {SERVE_VOCAB:,}) and {SERVE_DENSE} dense features, "
+        f"{SERVE_THREADS} closed-loop clients, the port's ServeRouter over 2 ServeFrontends "
+        f"(gRPC, HotIdCache {SERVE_CACHE_BYTES >> 20} MB each, max_batch {SERVE_MAX_BATCH}, "
+        f"max_wait {SERVE_MAX_WAIT_MS} ms) on {PS_SHARDS} PS pods: p50 {p50:.3f} ms, p99 "
+        f"{p99:.3f} ms; fleet {len(timed) / wall:.1f} QPS over {wall:.3f} s, by replica "
+        f"{[round(r / SERVE_ROWS / wall, 1) for r in rows]} QPS (hedges included); shed "
+        f"{shed}, hard errors {len(hard)}; router {routed}")
+    log(f"15b {batches} batches, mean {sum(rows) / batches:.1f} rows; a batch's pull "
+        f"{statistics.mean(pull_ms):.3f} ms (median {statistics.median(pull_ms):.3f}), its "
+        f"forward {statistics.mean(fwd_ms):.3f} ms by CUDA events (median "
+        f"{statistics.median(fwd_ms):.3f}; host {statistics.mean(host_ms):.3f}), upload and "
+        f"download included; cache hit ratio {hits / (hits + misses):.4f} ({hits:.0f} of "
+        f"{hits + misses:.0f} ids); the card's idle share over {len(profiled)} profiled "
+        f"requests ({profiled_batches} batches) "
+        f"{'not measured' if idle is None else f'{idle:.4f}'}, its busy time a batch "
+        f"{busy * 1e3 / max(profiled_batches, 1):.4f} ms; on {card_line}")
+    if hard:
+        raise AssertionError(f"15b: {len(hard)} hard errors, e.g. {hard[:3]}")
+    if not all(np.isfinite(r.scores).all() and r.scores.shape == (SERVE_ROWS,)
+               for r in results if r.ok):
+        raise AssertionError("15b: scores not finite or of the wrong shape")
+    ids, counts = np.unique(np.concatenate([r[0] for r in requests]), return_counts=True)
+    return ids[np.argsort(-counts, kind="stable")[:SERVE_HOT_IDS]]
+
+
+def serve_freshness(reads, writer, hot: np.ndarray) -> None:
+    """15c (see the module docstring): ``scripts/bench_serve.py``'s
+    ``stale_check`` on a 15b replica's read client."""
+    table = PS_TABLE["name"]
+    rng = np.random.default_rng(5)
+    before = reads.pull(table, hot)
+    slots, _, _ = reads.cache.lookup(table, hot)
+    mismatches, moved = 0, 0
+    for _ in range(SERVE_PUSHES):
+        writer.push(table, hot, rng.standard_normal((len(hot), PS_TABLE["dim"]))
+                    .astype(np.float32), scale=0.5)  # returns once acknowledged
+        via_cache, direct = reads.pull(table, hot), writer.pull(table, hot)
+        mismatches += not np.array_equal(via_cache, direct)
+        moved += not np.array_equal(via_cache, before)
+        before = via_cache
+    log(f"15c {SERVE_PUSHES} acknowledged pushes to the {len(hot)} hottest ids "
+        f"({int((slots >= 0).sum())} of them cached before the first): reads through the "
+        f"cache that differ from a direct pull {mismatches}, reads that moved {moved}")
+    if mismatches or moved != SERVE_PUSHES or not (slots >= 0).all():
+        raise AssertionError(f"15c: {mismatches} stale reads, {moved} of {SERVE_PUSHES} "
+                             f"moved, {int((slots < 0).sum())} hot ids uncached")
+
+
+def serve_rollout(work: str, frontend, server, writer, request, params: dict) -> None:
+    """15d (see the module docstring), on a 15b replica."""
+    from easydl_tpu_torch.loop import publish as pub
+    from easydl_tpu_torch.proto import easydl_pb2 as pb
+    from easydl_tpu_torch.serve.frontend import SERVE_SERVICE
+    from easydl_tpu_torch.utils.rpc import GRPC_MSG_OPTIONS, RpcClient
+
+    models = os.path.join(work, "models")
+    trees = {1: params, 2: serve_params(0, perturb=0.1)}
+    loaded = []
+
+    def loader(manifest, arrays):  # built on the watcher's thread
+        loaded.append(manifest["version"])
+        return serve_forward(tree_params(arrays))
+
+    ids, dense = request
+    emb = writer.pull(PS_TABLE["name"], ids)
+    cpu = {v: serve_forward(t, device="cpu")(emb, dense) for v, t in trees.items()}
+
+    def served(version):
+        r = frontend.infer(ids, dense)
+        if not r.ok:
+            raise AssertionError(f"15d: {r.verdict}")
+        got = torch.from_numpy(r.scores)
+        return {v: rel_err(got, torch.from_numpy(c)) for v, c in cpu.items()}, \
+            frontend.model_versions()["control"]
+
+    readings, failures = {}, []
+    pub.publish_version(models, flat_params(trees[1]), keep=8)
+    watcher = pub.ModelVersionWatcher(models, loader, on_swap=frontend.set_model,
+                                      replica=frontend.name, poll_s=0.05)
+    frontend.attach_rollout(watcher)
+    rpc = RpcClient(SERVE_SERVICE, server.address, timeout=30.0, options=GRPC_MSG_OPTIONS)
+    try:
+        watcher.start()
+        pub.publish_version(models, flat_params(trees[2]), keep=8)
+        deadline = time.monotonic() + 30
+        while watcher.current != 2 and time.monotonic() < deadline:
+            time.sleep(0.02)
+        readings["swap"] = served(2)
+        back = rpc.Rollout(pb.RolloutRequest(action="rollback"))
+        readings["rollback"] = served(1)
+        v3 = pub.publish_version(models, flat_params(serve_params(0, perturb=0.2)), keep=8)
+        path = os.path.join(models, f"v_{v3:08d}", "deep_0.kernel.npy")
+        with open(path, "r+b") as f:  # one byte of the payload, past the header
+            f.seek(-1000, os.SEEK_END)
+            byte = f.read(1)
+            f.seek(-1, os.SEEK_CUR)
+            f.write(bytes([byte[0] ^ 0x40]))
+        cleared = rpc.Rollout(pb.RolloutRequest(action="clear"))
+        readings["clear"] = served(2)
+    finally:
+        watcher.stop()
+        rpc.close()
+    log(f"15d hot swap through a ModelVersionWatcher (forwards built on its thread), the "
+        f"Rollout RPC's rollback, a v3 with one byte flipped: (relative L2 to v1's and v2's "
+        f"CPU forwards, the version served) {readings}; rollback {back.ok} "
+        f"'{back.message}', clear {cleared.ok} '{cleared.message}'; loaded {loaded}, "
+        f"quarantined {watcher.quarantined}, committed {pub.list_versions(models)}")
+    for step, want in (("swap", 2), ("rollback", 1), ("clear", 2)):
+        rels, version = readings[step]
+        other = 3 - want
+        if version != want or rels[want] > SERVE_CPU_REL or rels[other] <= 1e3 * SERVE_CPU_REL:
+            failures.append(f"{step}: served v{version}, {rels}")
+    if not (back.ok and back.active_version == 1 and cleared.ok and cleared.active_version == 2):
+        failures.append(f"the Rollout RPC answered {back} / {cleared}")
+    if v3 in loaded or v3 not in watcher.quarantined or v3 in pub.list_versions(models) \
+            or not os.path.exists(os.path.join(models, f"v_{v3:08d}", "CORRUPT")):
+        failures.append(f"v{v3} was not quarantined before it was built")
+    if failures:
+        raise AssertionError("15d: " + "; ".join(failures))
+
+
+def start_replica(work: str):
+    """15e's replica process, ``python -m easydl_tpu_torch.serve --deepfm``
+    on the card through ``spawn_replicas``, on a thread of its own so that
+    its start (the torch import, CUDA's init) runs beside 15a-15d; returns
+    the future of ({name: process}, seconds until its discovery file)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from easydl_tpu_torch.serve.launch import spawn_replicas
+
+    def spawn():
+        t0 = time.perf_counter()
+        procs = spawn_replicas(
+            1, work, PS_TABLE["name"], SERVE_FIELDS, max_batch=SERVE_MAX_BATCH,
+            max_wait_ms=SERVE_MAX_WAIT_MS, name_prefix="serve-e", wait_s=120,
+            extra_args=["--deepfm", "--dim", str(SERVE_DIM), "--dense-dim", str(SERVE_DENSE),
+                        "--hidden", ",".join(map(str, SERVE_HIDDEN))],
+            log_path=os.path.join(work, "replica.log"))
+        return procs, time.perf_counter() - t0
+
+    pool = ThreadPoolExecutor(1)
+    try:
+        return pool.submit(spawn)
+    finally:
+        pool.shutdown(wait=False)
+
+
+def serve_entry_point(work: str, writer, requests: list, started) -> None:
+    """15e (see the module docstring) on the replica ``start_replica``
+    started."""
+    from easydl_tpu_torch.proto import easydl_pb2 as pb
+    from easydl_tpu_torch.serve.frontend import SERVE_SERVICE
+    from easydl_tpu_torch.utils.rpc import GRPC_MSG_OPTIONS, RpcClient
+
+    log_path = os.path.join(work, "replica.log")
+    try:
+        procs, up = started.result()
+    except TimeoutError:
+        with open(log_path) as f:
+            print(f"--- the replica:\n{f.read()[-4000:]}", file=sys.stderr)
+        raise
+    (name, proc), = procs.items()
+    discovery = os.path.join(work, "serve", f"{name}.json")
+    with open(discovery) as f:
+        address = json.load(f)["address"]
+    same_seed = serve_forward(device="cpu")
+    rpc = RpcClient(SERVE_SERVICE, address, timeout=60.0, options=GRPC_MSG_OPTIONS)
+    rels, failures = [], []
+    try:
+        for ids, dense in requests:
+            resp = rpc.Infer(pb.InferRequest(raw_ids=ids.astype("<i8").tobytes(),
+                                             fields=SERVE_FIELDS, dense=dense.tobytes(),
+                                             dense_dim=SERVE_DENSE))
+            scores = np.frombuffer(resp.scores, "<f4")
+            if not resp.ok or scores.shape != (len(ids),) or not np.isfinite(scores).all():
+                failures.append(f"answered ok={resp.ok} '{resp.verdict}', {scores.shape}")
+                continue
+            want = same_seed(writer.pull(PS_TABLE["name"], ids), dense)
+            rels.append(rel_err(torch.from_numpy(scores.copy()), torch.from_numpy(want)))
+    finally:
+        rpc.close()
+        proc.send_signal(signal.SIGTERM)
+        try:
+            rc = proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            rc = proc.wait()
+    log(f"15e `python -m easydl_tpu_torch.serve --deepfm` (tower {SERVE_HIDDEN}, seed 0) up in "
+        f"{up:.1f} s (started with the phase); {len(requests)} Infer RPCs against the same-seed forward on the CPU, "
+        f"relative L2 {rels}; SIGTERM -> exit {rc}, discovery file left "
+        f"{os.path.exists(discovery)}")
+    if len(rels) != len(requests) or max(rels, default=1.0) > SERVE_CPU_REL:
+        failures.append(f"scores {rels} against the bound {SERVE_CPU_REL:g}")
+    if rc != 0 or os.path.exists(discovery):
+        failures.append(f"exit {rc}, discovery file left {os.path.exists(discovery)}")
+    if failures:
+        with open(log_path) as f:
+            print(f"--- the replica:\n{f.read()[-4000:]}", file=sys.stderr)
+        raise AssertionError("15e: " + "; ".join(failures))
+
+
+def serve_train(card: str, out: str) -> int:
+    """15a-15e (see the module docstring), as ``chip_smoke.py --serve CARD
+    OUT``: writes the phase's launches to ``OUT``."""
+    from easydl_tpu_torch.ps.client import ShardedPsClient
+    from easydl_tpu_torch.ps.table import TableSpec
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # the tower's f32 stays f32
+    torch.backends.cudnn.allow_tf32 = False
+    work = tempfile.mkdtemp(prefix="chip_smoke_serve_")
+    fa.reset_launches()
+    pods, frontends, servers, writer, started = [], [], [], None, None
+    try:
+        with Phase("15 (the PS pods up)"):
+            pods = ps_pods(work, os.path.join(work, "pods.log"))
+            writer = ShardedPsClient.from_registry(work, PS_SHARDS, wait_s=30)
+            writer.create_table(TableSpec(**PS_TABLE))
+        started = start_replica(work)
+        requests = serve_requests(SERVE_WARMUP + SERVE_REQUESTS + SERVE_PROFILED, seed=0)
+        params = serve_params(0)
+        with Phase("15a (the scorer, the card against the CPU)"):
+            serve_scorer(card, writer, requests, params)
+        with Phase("15b (two replicas behind the router, under load)"):
+            hot = serve_load(card, work, requests, params, frontends, servers)
+        with Phase("15c (freshness through the hot-id cache)"):
+            serve_freshness(frontends[0].reads.reads, writer, hot)
+        with Phase("15d (hot swap, rollback, quarantine)"):
+            serve_rollout(work, frontends[0], servers[0], writer, requests[0], params)
+        with Phase("15e (the replica process)"):
+            serve_entry_point(work, writer, requests[:3], started)
+    finally:
+        if started is not None:  # the replica, wherever the phase stopped
+            with contextlib.suppress(Exception):
+                for proc in started.result(timeout=150)[0].values():
+                    if proc.poll() is None:
+                        proc.kill()
+                        proc.wait()
+        for fe in frontends:
+            fe.stop()
+            fe.reads.close()
+        if writer is not None:
+            writer.close()
+        stop_pods(pods)
+        shutil.rmtree(work, ignore_errors=True)
+    with open(out, "w") as f:
+        json.dump({"launches": dict(fa.launches)}, f)
+    return 0
+
+
+def serve_phase(card: str) -> dict:
+    """Phase 15 (see the module docstring), in a process of its own; returns
+    its launches."""
+    fd, out = tempfile.mkstemp(prefix="chip_smoke_serve_", suffix=".json")
+    os.close(fd)
+    try:
+        with Phase("15 (the serving tier, BASELINE config 5's model)"):
+            rc = subprocess.run([sys.executable, os.path.abspath(__file__), "--serve", card, out],
+                                timeout=SERVE_DEADLINE_S).returncode
+            if rc:
+                raise AssertionError(f"phase 15 exited {rc}")
+        with open(out) as f:
+            return json.load(f)["launches"]
+    finally:
+        os.remove(out)
+
+
 def main() -> int:
     # -- 1. device
     if not torch.cuda.is_available():
@@ -4356,7 +4895,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     phases["14"] = ps_phase(card)
 
-    # -- 15. summary
+    # -- 15. the serving tier: DeepFM's tower on the card behind the router
+    gc.collect()
+    torch.cuda.empty_cache()
+    phases["15"] = serve_phase(card)
+
+    # -- 16. summary
     for r in rows:
         r["launches"] = counts[r["name"]]
     for r in f32_rows:
@@ -4399,6 +4943,8 @@ if __name__ == "__main__":
         sys.exit(moe_rank_main(int(sys.argv[2]), sys.argv[3]))
     if sys.argv[1:2] == ["--ps"]:
         sys.exit(ps_train(sys.argv[2], sys.argv[3]))
+    if sys.argv[1:2] == ["--serve"]:
+        sys.exit(serve_train(sys.argv[2], sys.argv[3]))
     if sys.argv[1:2] == ["--evaluator"]:  # phase 9's pod, with the worker's GPT size
         from easydl_tpu_torch.elastic import evaluator_main
 

@@ -3,8 +3,8 @@
 :func:`knob_int`, :func:`knob_float`, :func:`knob_bool`, :func:`knob_raw`,
 :func:`env_flag`, :func:`obs_port_from_env`) and of the declarations the
 copied modules read (the PS tier, its WAL, the RPC layer's metrics
-exporter, tracing, chaos and the elastic control plane), with the JAX package's names, types, defaults
-and help text. The port declares no variable of its own:
+exporter, tracing, chaos, the elastic control plane and the serving
+tier), with the JAX package's names, types, defaults and help text. The port declares no variable of its own:
 ``tests/test_torch_port_rules.py`` holds every name here to the JAX
 package's ``KNOB_DECLS``.
 """
@@ -45,6 +45,8 @@ KNOB_DECLS = (
      "off/disabled/negative disables."),
     ("EASYDL_METRICS_PORT_PS", "int", 0,
      "Exporter port for PS shard pods."),
+    ("EASYDL_METRICS_PORT_SERVE", "int", 0,
+     "Exporter port for serving replicas."),
     # -- tracing ----------------------------------------------------------
     ("EASYDL_TRACE", "str", "",
      "Arms distributed tracing; ''/0/off/false/no/disabled/none = off."),
@@ -99,6 +101,41 @@ KNOB_DECLS = (
     ("EASYDL_PS_TIER_DECAY", "float", 0.9,
      "Per-tick multiplicative access-frequency decay (ages out "
      "yesterday's hot set)."),
+    # -- serve fleet router ------------------------------------------------
+    ("EASYDL_SERVE_HEDGE_BUDGET", "float", 0.1,
+     "Hedged-request budget: max fraction of recent routed requests that "
+     "may carry a hedge (a sick fleet must not double its own load); "
+     "<= 0 disables hedging."),
+    ("EASYDL_SERVE_HEDGE_MIN_MS", "float", 5.0,
+     "Floor for the p95-derived hedge delay."),
+    ("EASYDL_SERVE_HEDGE_MAX_MS", "float", 200.0,
+     "Ceiling for the p95-derived hedge delay."),
+    ("EASYDL_SERVE_ROUTER_HOLDDOWN_S", "float", 2.0,
+     "Hold-down before an ejected replica is re-probed for rotation."),
+    ("EASYDL_SERVE_ROUTER_EJECT_FAILS", "int", 3,
+     "Consecutive transport failures (or hard sheds) that eject a "
+     "replica from rotation."),
+    ("EASYDL_SERVE_ROUTER_REFRESH_S", "float", 1.0,
+     "Replica discovery refresh cadence (workdir serve/ registry scan)."),
+    # -- production loop: rollout ----------------------------------------
+    ("EASYDL_ROLLOUT_POLL_S", "float", 0.5,
+     "Serve-side model-publication watcher poll cadence."),
+    ("EASYDL_ROLLOUT_KEEP", "int", 4,
+     "Committed model versions the publisher keeps on disk."),
+    ("EASYDL_ROLLOUT_CANARY_FRACTION", "float", 0.1,
+     "Session-hash fraction routed to the canary arm while one is "
+     "active (sessions without an id always serve control)."),
+    ("EASYDL_ROLLOUT_SALT", "str", "",
+     "Session->arm hash salt; rotate to reshuffle the A/B population."),
+    # -- retrieval (read by the serving frontend) -------------------------
+    ("EASYDL_RETRIEVAL_USER_TABLE", "str", "tt_user",
+     "PS table holding the user-tower context embeddings."),
+    ("EASYDL_RETRIEVAL_K", "int", 10,
+     "Default candidate count a Retrieve request gets when it asks for "
+     "k<=0."),
+    ("EASYDL_RETRIEVAL_NPROBE", "int", 8,
+     "Centroid buckets probed per query; >= nlist degenerates to exact "
+     "brute force."),
     # -- chaos / harness child markers ------------------------------------
     ("EASYDL_CHAOS_SPEC", "str", "",
      "Armed chaos scenario spec path; unset = every hook is one dict "

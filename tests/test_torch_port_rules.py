@@ -5,7 +5,8 @@
   JAX package's JAX-free modules (``data/``, ``obs/``, ``chaos/``,
   ``core/chunk_cache.py``, ``ps/``, ``proto/``, ``loop/spool.py``,
   ``utils/env.py``, ``rpc.py``, ``retry.py``, ``native.py``, ``api/``,
-  ``brain/``, the elastic control plane) included;
+  ``brain/``, the elastic control plane, ``serve/``, ``loop/publish.py``
+  and ``loop/rollout.py``) included;
 - the PS pod (``python -m easydl_tpu_torch.ps``) starts where importing
   torch or JAX fails, and the store's C++ source ships with the package;
 - so do the master, the agent, the Brain pod and the trainer pod, and the
@@ -17,7 +18,8 @@
   declare: it reads the agent protocol's, and declares no knob of its own;
 - the runner trains on the CPU when asked to (``--device cpu``), and without
   that flag, like its evaluator role, the evaluator pod, the elastic
-  worker, the bench and ``chip_smoke.py``, fails on a box without a CUDA
+  worker, the bench, the serving replica's ``--deepfm`` and
+  ``chip_smoke.py``, fails on a box without a CUDA
   GPU with a message that names the missing card;
 - the bench (``scripts/bench.py``) rehearses on the CPU and prints
   ``bench.py``'s fields;
@@ -89,7 +91,10 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
                    "brain/__init__", "brain/__main__", "brain/straggler", "brain/mesh_policy",
                    "brain/policy", "brain/convert", "brain/service", "elastic/__init__",
                    "elastic/membership", "elastic/master", "elastic/agent",
-                   "elastic/gce_metadata", "elastic/trainer_main", "elastic/timeline"):
+                   "elastic/gce_metadata", "elastic/trainer_main", "elastic/timeline",
+                   "serve/__init__", "serve/__main__", "serve/cache", "serve/frontend",
+                   "serve/launch", "serve/router", "serve/routing",  # the serving tier
+                   "loop/publish", "loop/rollout"):
         assert PORT / f"{module}.py" in files
     bad = [(str(f.relative_to(REPO)), m) for f in files for m in _imports(f)
            if m.split(".")[0] in FORBIDDEN]
@@ -139,6 +144,8 @@ def test_runner_trains_on_cpu_when_asked():
     ["-m", "easydl_tpu_torch.scripts.bench"],
     ["-m", "easydl_tpu_torch.scripts.tp_cards"],
     ["-m", "easydl_tpu_torch.scripts.ps_precision"],
+    ["-m", "easydl_tpu_torch.serve", "--workdir", "{tmp}", "--name", "serve-0", "--table", "emb",
+     "--fields", "4", "--deepfm"],
     ["chip_smoke.py"],
 ])
 def test_cuda_entry_points_fail_without_a_card(args, tmp_path, monkeypatch):
