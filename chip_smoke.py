@@ -445,11 +445,38 @@ Phases, each of which fails the run (non-zero exit) on any error:
    c. ``pull_shm`` on the same pods: a 4096-row batch's ids pulled through
       the shard's shared-memory mirrors bit-equal to the gRPC pull, both
       timed (medians of ``LOOP_SHM_REPEATS``) beside 14a's pull;
-18. summary: a ``kernels`` JSON line (with each phase's launches, 7b's,
+18. BASELINE config 3 submitted the reference's way, in a process of its
+   own (``chip_smoke.py --operator CARD OUT``): an ElasticJob built with the
+   port's ``JobSpec`` (``spec.command`` the port's runner: BERT-base at full
+   width on phase 10d's token shards, ``OPERATOR_STEPS`` steps, a save every
+   ``OPERATOR_CKPT``) through the port's operator
+   (``scripts/operator_lifecycle.py``: ``CrStore``, ``ElasticJobController``,
+   ``LocalProcessPodApi``, the standalone ``ingest`` pump; the Brain pod over
+   gRPC); the pods are the port's: the trainer pod (one worker), the agent
+   (``--platform cuda``) running the real ``elastic.worker``, the evaluator
+   pod on the card:
+   a. the operator starts the trainer pod first and alone;
+   b. the trainer applies the JobResource; the operator starts one worker
+      and one evaluator pod;
+   c. at step ``BERT_KILL_AT`` with a save committed the worker pod (its
+      agent, worker and rank) is SIGKILLed; the operator replaces it under
+      a fresh name at once, and the master forms generation 2 on the new
+      agent alone after one reshape;
+   d. generation 2 restores the committed step and replays the steps after
+      it, each loss within ``BERT_REPLAY_ABS`` of the killed generation's,
+      to the last step;
+   e. every pod and the job end ``Succeeded``, the pods unchanged over four
+      more reconcile ticks, the last step checkpointed and evaluated;
+   f. the operator decided with its native core, the port's own library;
+   g. no process of a pod's or the Brain's process group is left;
+   prints the seconds from the submit and from the kill beside 10d's
+   same-agent restart, and the job's wall time; its workers count no
+   launches (``null`` in the ``kernels`` line);
+19. summary: a ``kernels`` JSON line (with each phase's launches, 7b's,
    7d's, 13c's and 16's summed over their ranks and runs, 8's, 9's, 14c's
    and 17's over their generations; the f32 kernels' rows from phase 10,
-   their launches 10b's; phases 11's, 12's, 14's, 15's and 17's zeros), the
-   card line, then the result line.
+   their launches 10b's; phases 11's, 12's, 14's, 15's and 17's zeros,
+   18's null), the card line, then the result line.
 
 Each phase prints its seconds.
 
@@ -934,6 +961,19 @@ LOOP_SCORE_MOVE = 1e-3
 LOOP_SHM_REPEATS = 5
 LOOP_WORKER_S = 180  # each wait on the worker
 LOOP_DEADLINE_S = 420  # 17a-17c in their process
+# Phase 18, BASELINE config 3 submitted the reference's way: an ElasticJob
+# through the port's operator (scripts/operator_lifecycle.py), BERT-base at
+# full width on BERT_TOKENS token shards, phase 10's global batch in one
+# microbatch (the runner has no flag for grad_accum), OPERATOR_STEPS steps, a
+# save every OPERATOR_CKPT. The killed worker pod's steps straggle
+# OPERATOR_STRAGGLE_S each (the chaos hook, that pod's agent only) so that its
+# kill at step BERT_KILL_AT lands before its save of step 4 commits; the
+# replacement's steps do not straggle.
+OPERATOR_STEPS, OPERATOR_CKPT = 8, 2
+OPERATOR_STRAGGLE_S = 0.5
+OPERATOR_STAGE_S = 180  # each wait of the lifecycle
+OPERATOR_DEADLINE_S = 300  # phase 18 in its process
+RESTART_10D_S = (15.5, 20.4)  # 10d's kill -> first step (PERF.md section 6)
 CSRC = "easydl_tpu_torch/ops/csrc/"
 SOURCE = {  # by kernel: fa.launches' names
     "flash_fwd": CSRC + "flash_fwd_sm90.cu",
@@ -5291,6 +5331,73 @@ def pp_phase(card: str, phase4: dict, one: dict) -> dict:
     return total
 
 
+# ------------------------------------------------------------------ phase 18
+def operator_train(card: str, out: str) -> int:
+    """Phase 18 (see the module docstring), as ``chip_smoke.py --operator
+    CARD OUT``: writes its seconds to ``OUT``."""
+    from easydl_tpu_torch.data import write_token_shards
+    from easydl_tpu_torch.scripts import operator_lifecycle as lifecycle
+
+    fa._lib()  # the worker ranks load the library the parent built (built here when alone)
+    work = tempfile.mkdtemp(prefix="chip_smoke_operator_")
+    try:
+        tokens, spec = os.path.join(work, "tokens"), os.path.join(work, "chaos.json")
+        vocab = bert.make_bert(**BERT_JOB["model_kwargs"]).make_data(1).vocab
+        write_token_shards(np.random.default_rng(0).integers(0, vocab, BERT_TOKENS), tokens)
+        with open(spec, "w") as f:
+            json.dump({"scenario": "chip_smoke", "seed": 0, "t0": time.time(), "events": [
+                {"id": 0, "kind": "straggler", "start_s": 0, "end_s": 3600,
+                 "target": {"agent": f"{lifecycle.JOB}-worker-0"},
+                 "params": {"sleep_s": OPERATOR_STRAGGLE_S}}]}, f)
+        args = (f"--model bert --model-arg size={BERT_JOB['model_kwargs']['size']} --data-dir "
+                f"{tokens} --batch {BERT_GLOBAL_BATCH} --steps {OPERATOR_STEPS} --ckpt-every "
+                f"{OPERATOR_CKPT} --lr {BERT_JOB['lr']}")
+        rec = lifecycle.run(work, args, OPERATOR_STEPS, BERT_KILL_AT, "cuda", OPERATOR_STAGE_S,
+                            pod_env={"EASYDL_CHAOS_SPEC": spec})
+        failed = lifecycle.failures(rec, BERT_REPLAY_ABS)
+        again = {r["step"]: r["loss"] for r in rec.metrics.get(rec.replacement, [])
+                 if r["generation"] == 2}
+        log(f"18 the operator's lifecycle (BASELINE config 3): pods created "
+            f"{ {n: (role, round(t, 2)) for n, (role, t, _) in rec.created.items()} }; "
+            f"{rec.killed_pod} SIGKILLed at step {max(rec.killed_losses)} with step {rec.saved} "
+            f"committed, replaced by {rec.replacement}; the master's reshapes {rec.reshapes}; "
+            f"losses generation 1 {rec.killed_losses}, generation 2 {again}; committed "
+            f"{rec.committed}, evaluated {rec.eval_steps}; pods at the end {rec.final_pods}, "
+            f"stable {rec.stable}, job {rec.job_status.get('phase')}; reconcile core "
+            f"{'native' if rec.native_core else 'python'} ({rec.native_library}), Brain core "
+            f"{rec.brain_core}; processes left {rec.leftover}")
+        log("18 seconds from the submit: " + ", ".join(
+            f"{k} {v:.2f}" for k, v in rec.since_submit.items())
+            + "; from the kill: " + ", ".join(f"{k} {v:.2f}" for k, v in rec.since_kill.items())
+            + f" (10d's same-agent restart, kill -> first step: "
+            f"{' - '.join(map(str, RESTART_10D_S))}); the job's wall time {rec.wall_s:.2f}; "
+            f"on {card}")
+        if failed:
+            raise AssertionError("18: " + "; ".join(failed))
+        with open(out, "w") as f:
+            json.dump({"since_submit": rec.since_submit, "since_kill": rec.since_kill,
+                       "wall_s": rec.wall_s}, f)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return 0
+
+
+def operator_phase(card: str) -> dict:
+    """Phase 18 (see the module docstring), in a process of its own; returns
+    its seconds."""
+    fd, out = tempfile.mkstemp(prefix="chip_smoke_operator_", suffix=".json")
+    os.close(fd)
+    try:
+        with Phase("18 (the operator's lifecycle, BASELINE config 3)"):
+            rc = run_child(["--operator", card, out], OPERATOR_DEADLINE_S)
+            if rc:
+                raise AssertionError(f"phase 18 exited {rc}")
+        with open(out) as f:
+            return json.load(f)
+    finally:
+        os.remove(out)
+
+
 # ------------------------------------------------------------------ phase 17
 def loop_labels(ids: np.ndarray) -> np.ndarray:
     """A request's labels: a click where its first field's id, hashed with
@@ -5912,6 +6019,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     clear_chunk_cache()
     phases["16"] = pp_phase(card, phase4, pp_ref)
+    SPARES.fill(2)  # 17, 18
 
     # -- 17. the online loop: serve -> feedback -> train -> push, no flash kernel
     gc.collect()
@@ -5924,14 +6032,26 @@ def main() -> int:
         f"in {ps['parts']['pull']:.3f} ms (through PsReadClient); the loop's lag p50 "
         f"{loop['lag_ms']['p50']:.1f} ms, p99 {loop['lag_ms']['p99']:.1f} ms; on {card}")
 
-    # -- 18. summary
+    # -- 18. the operator: config 3 submitted as an ElasticJob, a worker pod killed
+    gc.collect()
+    torch.cuda.empty_cache()
+    clear_chunk_cache()
+    op = operator_phase(card)
+    phases["18"] = None  # the real worker counts no launches
+    log(f"18 beside 10d: the kill to generation 2's first step "
+        f"{op['since_kill']['generation 2 first step']:.2f} s on a fresh worker pod (10d, "
+        f"the same agent: {' - '.join(map(str, RESTART_10D_S))} s); the job "
+        f"{op['wall_s']:.2f} s from its submit; on {card}")
+
+    # -- 19. summary
     for r in rows:
         r["launches"] = counts[r["name"]]
     for r in f32_rows:
         r["launches"] = phases["10b"][r["name"]]
     rows += f32_rows
     for r in rows:
-        r["launches_by_phase"] = {p: c[r["name"]] for p, c in phases.items()}
+        r["launches_by_phase"] = {p: None if c is None else c[r["name"]]
+                                  for p, c in phases.items()}
     log(json.dumps({"kernels": rows}))
     log(f"card: {card}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -5987,6 +6107,8 @@ if __name__ == "__main__":
             sys.exit(serve_train(sys.argv[2], sys.argv[3]))
         if sys.argv[1:2] == ["--loop"]:
             sys.exit(loop_train(sys.argv[2], sys.argv[3]))
+        if sys.argv[1:2] == ["--operator"]:
+            sys.exit(operator_train(sys.argv[2], sys.argv[3]))
         if sys.argv[1:2] == ["--evaluator"]:  # phase 9's pod, with the worker's GPT size
             from easydl_tpu_torch.elastic import evaluator_main
 

@@ -3,9 +3,9 @@
 :func:`knob_int`, :func:`knob_float`, :func:`knob_bool`, :func:`knob_raw`,
 :func:`env_flag`, :func:`obs_port_from_env`) and of the declarations the
 copied modules read (the PS tier, its WAL, the RPC layer's metrics
-exporter, tracing, chaos, the elastic control plane, the serving tier
-and the production loop), with the JAX package's names, types,
-defaults and help text. The port declares no variable of its own:
+exporter, tracing, chaos, the elastic control plane, the serving tier,
+the production loop, the operator and the fleet scrape), with the JAX
+package's names, types, defaults and help text. The port declares no variable of its own:
 ``tests/test_torch_port_rules.py`` holds every name here to the JAX
 package's ``KNOB_DECLS``.
 """
@@ -24,8 +24,12 @@ KNOB_DECLS = (
     ("EASYDL_WORKDIR", "str", None,
      "Job working directory: journals, WAL roots, checkpoints, metrics "
      "files, timelines all live under it."),
+    ("EASYDL_JOB", "str", "",
+     "Job name a pod belongs to (controller process/kube backends)."),
     ("EASYDL_POD_NAME", "str", "",
      "Pod name injected by the controller backends (PS pod identity)."),
+    ("EASYDL_POD_ROLE", "str", "",
+     "Pod role (ps/master/agent/serve) injected by controller backends."),
     ("EASYDL_REPLACES", "str", "",
      "Pod name a rescue PS shard replaces (claims its WAL + shard slot)."),
     ("EASYDL_RESHARD_DEST", "bool", False,
@@ -46,6 +50,8 @@ KNOB_DECLS = (
      "off/disabled/negative disables."),
     ("EASYDL_METRICS_PORT_PS", "int", 0,
      "Exporter port for PS shard pods."),
+    ("EASYDL_METRICS_PORT_CONTROLLER", "int", 0,
+     "Exporter port for the controller/operator."),
     ("EASYDL_METRICS_PORT_SERVE", "int", 0,
      "Exporter port for serving replicas."),
     # -- tracing ----------------------------------------------------------
@@ -102,6 +108,24 @@ KNOB_DECLS = (
     ("EASYDL_PS_TIER_DECAY", "float", 0.9,
      "Per-tick multiplicative access-frequency decay (ages out "
      "yesterday's hot set)."),
+    ("EASYDL_PS_SPLIT_HOT_RATIO", "float", 1.5,
+     "Hot-shard split trigger: shard rows vs mean ratio."),
+    ("EASYDL_PS_SPLIT_MIN_ROWS", "float", 100_000.0,
+     "Minimum total rows before split decisions engage."),
+    ("EASYDL_PS_SPLIT_MAX_SHARDS", "int", 64,
+     "Upper bound on PS shard fan-out from auto-splits."),
+    ("EASYDL_PS_SPLIT_ACCESS_RATIO", "float", 2.0,
+     "Max/mean per-shard access ratio that counts as hot-working-set "
+     "skew (the two-tier split trigger)."),
+    # -- serving ----------------------------------------------------------
+    ("EASYDL_SERVE_TARGET_QPS", "float", 500.0,
+     "Per-replica QPS target for the autoscale policy."),
+    ("EASYDL_SERVE_P99_BUDGET_S", "float", 0.050,
+     "p99 latency budget for the autoscale policy."),
+    ("EASYDL_SERVE_MIN_REPLICAS", "int", 1,
+     "Autoscale floor for serving replicas."),
+    ("EASYDL_SERVE_MAX_REPLICAS", "int", 64,
+     "Autoscale ceiling for serving replicas."),
     # -- serve fleet router ------------------------------------------------
     ("EASYDL_SERVE_HEDGE_BUDGET", "float", 0.1,
      "Hedged-request budget: max fraction of recent routed requests that "
@@ -151,6 +175,10 @@ KNOB_DECLS = (
     ("EASYDL_RETRIEVAL_NPROBE", "int", 8,
      "Centroid buckets probed per query; >= nlist degenerates to exact "
      "brute force."),
+    # -- SLOs / alerting -------------------------------------------------
+    ("EASYDL_SCRAPE_POOL", "int", 8,
+     "Bounded worker pool for concurrent fleet scrapes "
+     "(obs.scrape.scrape_fleet)."),
     # -- chaos / harness child markers ------------------------------------
     ("EASYDL_CHAOS_SPEC", "str", "",
      "Armed chaos scenario spec path; unset = every hook is one dict "

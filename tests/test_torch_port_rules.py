@@ -5,12 +5,14 @@
   JAX package's JAX-free modules (``data/``, ``obs/``, ``chaos/``,
   ``core/chunk_cache.py``, ``ps/``, ``proto/``, ``loop/spool.py``,
   ``utils/env.py``, ``rpc.py``, ``retry.py``, ``native.py``, ``api/``,
-  ``brain/``, the elastic control plane, ``serve/``, ``loop/publish.py``
-  and ``loop/rollout.py``) included;
+  ``brain/``, the elastic control plane, ``serve/``, ``loop/publish.py``,
+  ``loop/rollout.py``, the operator's ``controller/`` and ``obs/scrape.py``)
+  included;
 - the PS pod (``python -m easydl_tpu_torch.ps``) starts where importing
   torch or JAX fails, and the store's C++ source ships with the package;
-- so do the master, the agent, the Brain pod and the trainer pod, and the
-  Brain's native core ships with the package; the agent, given no
+- so do the master, the agent, the Brain pod, the trainer pod and the
+  operator (``python -m easydl_tpu_torch.controller``), and the Brain's and
+  the operator's native cores ship with the package; the agent, given no
   platform, starts the worker on the card (no ``--device cpu``);
 - the image bundles (ResNet, the MLP) build on the CPU when asked to and
   raise without a card otherwise;
@@ -100,7 +102,12 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
                    "serve/launch", "serve/router", "serve/routing",  # the serving tier
                    "loop/publish", "loop/rollout",
                    "loop/feedback", "loop/continuous", "ps/shm", "ps/reshard",  # the loop,
-                   "brain/tier_policy"):  # the rest of the PS tier
+                   "brain/tier_policy",  # the rest of the PS tier
+                   "controller/__init__", "controller/__main__", "controller/fleet",
+                   "controller/kube_cr_source", "controller/kube_http",
+                   "controller/kube_pod_api", "controller/operator", "controller/pod_api",
+                   "controller/process_pod_api", "controller/reconciler",  # the operator
+                   "brain/arbiter", "obs/scrape", "scripts/operator_lifecycle"):
         assert PORT / f"{module}.py" in files
     bad = [(str(f.relative_to(REPO)), m) for f in files for m in _imports(f)
            if m.split(".")[0] in FORBIDDEN]
@@ -231,6 +238,7 @@ def test_the_ps_pod_starts_without_torch_or_jax():
     ("easydl_tpu_torch.elastic.agent", "--master-file"),
     ("easydl_tpu_torch.brain", "--state-dir"),
     ("easydl_tpu_torch.elastic.trainer_main", "--plan-dir"),
+    ("easydl_tpu_torch.controller", "--watch-dir"),
 ])
 def test_the_control_plane_pods_start_without_torch_or_jax(module, flag):
     """The pods' import chains hold neither (the agent starts the worker
@@ -296,6 +304,18 @@ def test_the_brain_core_source_ships_with_the_package():
     assert Path(native.BUILD_DIR) == PORT / "_build"
     data = tomllib.loads((REPO / "pyproject.toml").read_text())["tool"]["setuptools"]
     assert "native/*.cc" in data["package-data"]["easydl_tpu_torch.brain"]
+
+
+def test_the_reconciler_core_source_ships_with_the_package():
+    import tomllib
+
+    from easydl_tpu_torch.controller import reconciler
+    from easydl_tpu_torch.utils import native
+
+    assert Path(reconciler._SOURCE) == PORT / "controller" / "native" / "reconciler_core.cc"
+    assert Path(native.BUILD_DIR) == PORT / "_build"
+    data = tomllib.loads((REPO / "pyproject.toml").read_text())["tool"]["setuptools"]
+    assert "native/*.cc" in data["package-data"]["easydl_tpu_torch.controller"]
 
 
 def test_the_ps_store_source_ships_with_the_package():
